@@ -1,0 +1,22 @@
+"""minitron-8b [dense] — 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000, pruned nemotron. [arXiv:2407.14679; hf]"""
+import torch
+from repro_torch.models.common import ModelConfig
+
+ARCH_ID = "minitron-8b"
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name=ARCH_ID, family="dense", num_layers=32, d_model=4096,
+        num_heads=32, num_kv_heads=8, head_dim=128, d_ff=16384,
+        vocab_size=256000, dtype=torch.bfloat16,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name=ARCH_ID + "-smoke", family="dense", num_layers=2, d_model=64,
+        num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
+        vocab_size=128, dtype=torch.float32,
+    )
