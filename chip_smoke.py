@@ -16,6 +16,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  table and on a B=8 decode append (bit-exact), K3 at B=1
                  and B=8 with lengths up to ~2k, a padded table and a
                  length-0 row, in float32 and bfloat16 (stated tolerances);
+                 K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
+                 and at gemma-2b's head shape, in both dtypes, plus its
+                 suffix rows bit-identical to its cold rows in fp32; K5a
+                 (33-block gather) and K5b (47-block scatter), bit-exact;
                  kernel, plain, bound and library times.
 4. ``e2e_fp32`` — FlowKVClient on full-width, full-depth qwen3-1.7b in
                  float32 (1 prefill + 1 decode node, 256 blocks, 4 prompts
@@ -27,8 +31,17 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  to monolithic prefill, one paged step's logits within a
                  stated tolerance of the dense step on the same state, full
                  token agreement reported; TTFT, transfer and per-step decode
-                 wall times. This run is the main path whose kernel launch
-                 counts go into the ``kernels`` line.
+                 wall times. This run is the main path whose K1 and K3
+                 launch counts go into the ``kernels`` line.
+6. ``e2e_prefix`` — the prefill data plane on full-width, full-depth
+                 qwen3-1.7b in float32: a 1056-token shared prefix, a donor
+                 and three followers served on 1P+1D with prefix reuse and
+                 layer_window=7, again with reuse off, again chunked, and by
+                 monolithic greedy_generate — identical tokens, exact reuse
+                 accounting, one dispatch per prefix fetch and per window
+                 sub-plan, no leaks; K4 (cold and suffix), K5a and K5b
+                 launched (their counts go into the ``kernels`` line). TTFT
+                 split and the prefill's device time by kernel are printed.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -63,6 +76,13 @@ BF16_TOL = 2e-2
 # only the summation order and the final bf16 rounding of out differ, so
 # out is held to one bf16 ulp at |x| <= 2 (2^-7) and m, l to 1e-4 relative.
 BF16_UPCAST_TOL = 2.0 ** -7
+# K4 vs its plain version: fp32 within the reference's own 2e-5 (only the
+# summation order differs); bf16 within its 3e-2 against the plain version
+# on the same bf16 values (which rounds the softmax weights to bf16), and
+# within half a bf16 ulp (|x| * 2^-8) + 1e-5 of the plain version on the
+# same values upcast to fp32 (only the final rounding of out differs).
+K4_FP32_TOL = 2e-5
+K4_BF16_TOL = 3e-2
 # bf16 paged decode step vs dense decode step on the same state: two
 # different bf16 attention paths through 28 layers; hold max |delta logit|
 # to 5% of the logits' max magnitude.
@@ -325,8 +345,147 @@ def phase_kernels(torch, env) -> dict:
                                bound_by=b3_by)
         del kpool
     rows["paged_decode_attention"] = k3_main
+    rows.update(_k4_cases(torch, peaks, gen, flush))
+    rows.update(_k5_cases(torch, peaks, gen, flush, L, bs, KV, hd))
     del flush
     torch.cuda.empty_cache()
+    return rows
+
+
+def _sdpa(torch, q, k, v, q_offset):
+    """One scaled_dot_product_attention call on the same inputs (the
+    yardstick of ``library_ms``; the port never calls it), in its
+    (B, H, S, hd) layout, prepared outside the timed call."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    s, t = q.shape[1], k.shape[1]
+    mask = None
+    if q_offset:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= q_offset + torch.arange(s, device=q.device)[:, None])
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=True)
+
+
+def _k4_cases(torch, peaks, gen, flush) -> dict:
+    """K4 against its plain version: cold S = T = 1500 and suffix S = 400
+    over T = 1456 at qwen3-1.7b's heads, and gemma-2b's heads (hd 256,
+    KV 1, H 8) cold at 1024, in float32 and bfloat16; and the suffix rows
+    of the fp32 kernel bit-identical to the same rows of its cold call."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
+
+    cases = [("cold", 1500, 0, 16, 8, 128), ("suffix", 400, 1056, 16, 8, 128),
+             ("cold gemma-2b heads", 1024, 0, 8, 1, 256)]
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, s, off, H, KV, hd in cases:
+            t = s + off
+            mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+            q, k, v = mk(1, s, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
+            out = flash_prefill_op(q, k, v, q_offset=off)
+            same = flash_prefill_ref(q, k, v, q_offset=off)
+            sync(torch)
+            err = float((out.float() - same.float()).abs().max())
+            if dtype == torch.float32:
+                up_err, ok = err, err <= K4_FP32_TOL
+            else:
+                up = flash_prefill_ref(q.float(), k.float(), v.float(), q_offset=off)
+                d = (out.float() - up).abs()
+                up_err = float(d.max())
+                ok = err <= K4_BF16_TOL and bool((d <= up.abs() * 2.0 ** -8 + 1e-5).all())
+                del up, d
+            check(ok, f"K4 disagrees ({dtype}, {tag}): {err} vs plain, {up_err} vs upcast")
+            pairs = s * off + s * (s + 1) // 2
+            esz = q.element_size()
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+            key = "fp32" if dtype == torch.float32 else "bf16"
+            b4, b4_by = bound_ms(nbytes, 4 * hd * H * pairs, peaks, key)
+            t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v, q_offset=off), flush=flush)
+            t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, q_offset=off),
+                          reps=5, flush=flush)
+            t4l = time_ms(torch, _sdpa(torch, q, k, v, off), flush=flush)
+            emit("kernels", kernel="flash_prefill", case=tag, dtype=str(dtype), S=s, T=t,
+                 q_offset=off, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
+                 ms=t4, plain_ms=t4p, library_ms=t4l, bound_ms=b4, bound_by=b4_by,
+                 flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9)
+            if dtype == torch.bfloat16 and tag == "cold":
+                main = dict(shape=f"cold S=T={s} bf16, H {H} KV {KV} hd {hd}",
+                            max_abs_err=err, ms=t4, plain_ms=t4p, library_ms=t4l,
+                            bound_ms=b4, bound_by=b4_by)
+            del q, k, v, out, same
+    # row independence: rows 1056.. of the cold call == the suffix call's rows
+    q = torch.randn((1, 1456, 16, 128), generator=gen, device=DEVICE)
+    k = torch.randn((1, 1456, 8, 128), generator=gen, device=DEVICE)
+    v = torch.randn((1, 1456, 8, 128), generator=gen, device=DEVICE)
+    cold = flash_prefill_op(q, k, v)
+    identical = {}
+    for off in (1056, 1000, 1455):
+        identical[off] = bool(torch.equal(flash_prefill_op(q[:, off:], k, v, q_offset=off),
+                                          cold[:, off:]))
+    sync(torch)
+    emit("kernels", kernel="flash_prefill", case="suffix rows == cold rows (fp32)",
+         T=1456, offsets_bit_identical=identical)
+    check(all(identical.values()), f"K4 suffix rows differ from its cold rows: {identical}")
+    return {"flash_prefill": main}
+
+
+def _k5_cases(torch, peaks, gen, flush, L, bs, KV, hd) -> dict:
+    """K5a: a 33-block prefix gather; K5b: a 47-block prefill scatter, both
+    in bf16 and bit-exact against the plain versions at qwen3-1.7b's block
+    shape, untouched blocks kept."""
+    from repro_torch.kernels.kv_gather import (kv_gather, kv_gather_ref, kv_scatter,
+                                               kv_scatter_ref)
+
+    nb, payload = 256, bs * KV * hd
+    pool = torch.randn((nb, L, 2, payload), generator=gen, device=DEVICE).to(torch.bfloat16)
+    blk_bytes = L * 2 * payload * 2
+    rows = {}
+    ids = torch.randperm(nb, generator=gen, device=DEVICE)[:33].to(torch.int32)
+    got = kv_gather(pool, ids)
+    same = kv_gather_ref(pool, ids)
+    exact = bool(torch.equal(got.view(torch.int16), same.view(torch.int16)))
+    k5a_err = float((got.float() - same.float()).abs().max())
+    check(exact, "K5a gather not bit-exact")
+    nbytes = 2 * 33 * blk_bytes + ids.numel() * 4
+    b5, b5_by = bound_ms(nbytes, 0, peaks, "bf16")
+    idl = ids.long()
+    t5 = time_ms(torch, lambda: kv_gather(pool, ids), flush=flush)
+    t5p = time_ms(torch, lambda: kv_gather_ref(pool, ids), flush=flush)
+    t5l = time_ms(torch, lambda: pool.index_select(0, idl), flush=flush)
+    emit("kernels", kernel="kv_gather", blocks=33, block_bytes=blk_bytes, bit_exact=exact,
+         max_abs_err=k5a_err, ms=t5, plain_ms=t5p, library_ms=t5l, bound_ms=b5, bound_by=b5_by,
+         achieved_gbps=nbytes / t5 / 1e6)
+    rows["kv_gather"] = dict(shape=f"33 blocks x {blk_bytes} B bf16", max_abs_err=k5a_err,
+                             ms=t5, plain_ms=t5p, library_ms=t5l, bound_ms=b5, bound_by=b5_by)
+    del got, same
+    host_ids = torch.randperm(nb, generator=gen, device=DEVICE)[:47].to(torch.int32).cpu()
+    ids = host_ids.to(DEVICE)              # K5b takes the block manager's host ids
+    staging = torch.randn((47, L, 2, payload), generator=gen, device=DEVICE).to(torch.bfloat16)
+    a, b = pool.clone(), pool.clone()
+    kv_scatter(a, host_ids, staging)
+    kv_scatter_ref(b, ids, staging)
+    sync(torch)
+    exact = bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    k5b_err = float((a.float() - b.float()).abs().max())
+    kept_ids = torch.ones(nb, dtype=torch.bool, device=DEVICE)
+    kept_ids[ids.long()] = False
+    kept = bool(torch.equal(a[kept_ids].view(torch.int16), pool[kept_ids].view(torch.int16)))
+    check(exact and kept, f"K5b scatter not bit-exact (exact={exact}, untouched kept={kept})")
+    nbytes = 2 * 47 * blk_bytes + ids.numel() * 4     # the bf16 rows moved
+    b6, b6_by = bound_ms(nbytes, 0, peaks, "bf16")
+    idl = ids.long()
+    t6 = time_ms(torch, lambda: kv_scatter(a, host_ids, staging), flush=flush)
+    t6p = time_ms(torch, lambda: kv_scatter_ref(b, ids, staging), flush=flush)
+    t6l = time_ms(torch, lambda: b.index_copy_(0, idl, staging), flush=flush)
+    emit("kernels", kernel="kv_scatter", blocks=47, block_bytes=blk_bytes, bit_exact=exact,
+         untouched_kept=kept, max_abs_err=k5b_err, ms=t6, plain_ms=t6p, library_ms=t6l,
+         bound_ms=b6, bound_by=b6_by, achieved_gbps=nbytes / t6 / 1e6,
+         note="ms includes the upload of the host ids")
+    rows["kv_scatter"] = dict(shape=f"47 blocks x {blk_bytes} B bf16", max_abs_err=k5b_err,
+                              ms=t6, plain_ms=t6p, library_ms=t6l, bound_ms=b6,
+                              bound_by=b6_by)
+    del pool, a, b, staging
     return rows
 
 
@@ -358,6 +517,14 @@ def run_cluster(torch, cfg, params, prompts, max_batch_tokens):
     return client, handles, counts
 
 
+def k1_per_step(cluster, counts, s) -> float:
+    """K1 launches per decode step: every transfer record (P->D plan,
+    layer-window sub-plans, prefix fetch, retries) counts its dispatches,
+    each one K1 launch; the rest are the decode steps' fused appends."""
+    moved = sum(t.num_dispatches for t in cluster.transfers)
+    return (counts["kv_transfer"] - moved) / s["decode_steps"]
+
+
 def check_cluster(client, handles, counts, tag):
     s = client.stats()
     xfers = [t for t in client.cluster.transfers if t.kind == "kv"]
@@ -369,7 +536,8 @@ def check_cluster(client, handles, counts, tag):
     check(s["transfer_retries"] == 0, f"{tag}: checksum retries {s['transfer_retries']}")
     check(s["decode_dispatches"] == s["decode_steps"] > 0,
           f"{tag}: decode_dispatches {s['decode_dispatches']} != steps {s['decode_steps']}")
-    check(counts["kv_transfer"] > 0 and counts["paged_decode_attention"] > 0,
+    check(counts["kv_transfer"] > 0 and counts["paged_decode_attention"] > 0
+          and counts["flash_prefill"] > 0 and counts["kv_scatter"] > 0,
           f"{tag}: kernels not launched on the main path: {counts}")
     check(s["leaked_blocks"] == 0.0, f"{tag}: leaked blocks")
     return s
@@ -427,7 +595,7 @@ def phase_e2e(torch, dtype, env):
                 mean_transfer_calls=s["mean_transfer_calls"],
                 decode_steps=s["decode_steps"], decode_dispatches=s["decode_dispatches"],
                 token_agreement=agree, first_tokens_equal=first_ok, timing=timing)
-    data["k1_launches_per_step"] = (counts["kv_transfer"] - s["transfers"]) / s["decode_steps"]
+    data["k1_launches_per_step"] = k1_per_step(client.cluster, counts, s)
     if dtype == torch.float32:
         check(outs == mono, f"{tag}: cluster tokens differ from monolithic: {agree}")
     else:
@@ -471,6 +639,16 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _device_by_kernel(prof) -> dict:
+    """Device microseconds by kernel name from a torch.profiler run."""
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type is not None and "CUDA" in str(evt.device_type):
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
+    return by_kernel
 
 
 def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
@@ -524,11 +702,7 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
             step()
         sync(torch)
         wall = time.perf_counter() - t0
-    by_kernel = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type is not None and "CUDA" in str(evt.device_type):
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
+    by_kernel = _device_by_kernel(prof)
     total = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
     out.update(step_device_ms=total / 3e3, step_profiled_wall_ms=wall / 3 * 1e3,
@@ -552,6 +726,226 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# e2e_prefix: the prefill data plane (prefix reuse, chunking, layer windows)
+# ---------------------------------------------------------------------------
+PREFIX_LEN = 1056                      # 33 blocks: a shared system prompt
+DONOR_TAIL = 64
+FOLLOWER_TAILS = [96, 200, 400]
+PREFIX_NEW_TOKENS = 8
+LAYER_WINDOW = 7                       # 4 sub-plans per P->D transfer at 28 layers
+CHUNK_TOKENS = 384                     # the donor's 1120 tokens take 3 chunks
+
+
+def _staggered(torch, cfg, params, prompts, **kw):
+    """Serve the donor, then the followers once the donor's KV is resident
+    on the decode node; returns (cluster, requests, launch counts, span
+    recorder, per-request fetch walls)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs.tracing import attach_tracer
+    from repro_torch.serving.cluster import PDCluster
+    from repro_torch.serving.request import Request, SamplingParams
+
+    cluster = PDCluster(cfg, params, num_prefill=1, num_decode=1, num_blocks=256,
+                        max_batch_tokens=4096, device=DEVICE, **kw)
+    rec = attach_tracer(cluster)
+    fetch_wall = {}
+    fetch = cluster._fetch_prefix
+
+    def timed_fetch(engine, req):          # a synchronized wall around the fetch
+        sync(torch)
+        t0 = time.perf_counter()
+        fetch(engine, req)
+        sync(torch)
+        fetch_wall[req.request_id] = fetch_wall.get(req.request_id, 0.0) + \
+            time.perf_counter() - t0
+
+    cluster._fetch_prefix = timed_fetch
+    reqs = [Request(prompt_tokens=list(p),
+                    sampling=SamplingParams(max_new_tokens=PREFIX_NEW_TOKENS))
+            for p in prompts]
+    sync(torch)
+    reset_launch_counts()
+    cluster.submit(reqs[0])
+    for _ in range(40):
+        cluster.step()
+        if reqs[0].transfer_end_wall is not None:
+            break
+    check(reqs[0].transfer_end_wall is not None, "e2e_prefix: the donor never transferred")
+    for r in reqs[1:]:
+        cluster.submit(r)
+    for _ in range(300):
+        cluster.step()
+        if len(cluster.finished) == len(reqs):
+            break
+    sync(torch)
+    counts = launch_counts()
+    check(len(cluster.finished) == len(reqs),
+          f"e2e_prefix: {len(cluster.finished)} of {len(reqs)} finished")
+    return cluster, reqs, counts, rec, fetch_wall
+
+
+def _prefix_run_summary(cluster, reqs, counts, rec, fetch_wall, tag) -> dict:
+    s = cluster.stats()
+    total = sum(r.prompt_len for r in reqs)
+    windows = -(-cluster.cfg.num_layers // LAYER_WINDOW)
+    kv = [t for t in cluster.transfers if t.kind == "kv"]
+    fetches = [t for t in cluster.transfers if t.kind == "prefix_fetch"]
+    check(s["prefill_tokens_computed"] == total - s["prefix_tokens_reused"],
+          f"{tag}: prefill_tokens_computed {s['prefill_tokens_computed']} != "
+          f"{total} - {s['prefix_tokens_reused']}")
+    check(len(kv) == len(reqs) and all(t.status == "ok" and t.num_dispatches == windows
+                                       for t in kv),
+          f"{tag}: P->D transfers {[(t.status, t.num_dispatches) for t in kv]}, "
+          f"want {windows} window sub-plans of one dispatch each")
+    check(all(t.num_dispatches == 1 for t in fetches),
+          f"{tag}: prefix fetch dispatches {[t.num_dispatches for t in fetches]} != 1")
+    check(s["transfer_retries"] == 0, f"{tag}: checksum retries {s['transfer_retries']}")
+    check(s["leaked_blocks"] == 0.0, f"{tag}: leaked blocks")
+    cluster.assert_no_leaks()
+    chunks = {r.request_id: sorted((sp.attrs["offset"], sp.attrs["tokens"])
+                                   for sp in rec.spans if sp.name == "prefill_chunk"
+                                   and sp.trace_id == r.request_id) for r in reqs}
+    timing = [{"prompt_len": r.prompt_len, "cached_prefix": r.num_cached_prefix_tokens,
+               "chunks": chunks[r.request_id],
+               "ttft_wall_s": r.first_token_wall - r.arrival_wall,
+               "prefill_wall_s": r.prefill_end_wall - r.prefill_start_wall,
+               "fetch_wall_s": fetch_wall.get(r.request_id, 0.0),
+               "transfer_wall_s": r.transfer_end_wall - r.transfer_start_wall}
+              for r in reqs]
+    return dict(launches=counts, k1_launches_per_step=k1_per_step(cluster, counts, s),
+                prefix_hits=s["prefix_hits"], prefix_tokens_reused=s["prefix_tokens_reused"],
+                prefix_fetches=s["prefix_fetches"],
+                prefill_tokens_computed=s["prefill_tokens_computed"], total_prompt=total,
+                transfers=[(t.kind, t.num_dispatches) for t in cluster.transfers],
+                decode_steps=s["decode_steps"], timing=timing)
+
+
+def _profile_prefill(torch, cfg, params, donor, follower) -> dict:
+    """Device time by kernel of the donor's cold prefill and of one
+    follower's suffix prefill over the cached prefix, each with its pool
+    write (and the follower's prefix read), outside the cluster loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
+
+    kv = PagedKVCache(spec_for_model(cfg, 128), device=DEVICE)
+    kv.bm.allocate(0, len(donor))            # each call rewrites the same blocks
+    kv.bm.allocate(1, len(follower))
+
+    def cold():
+        _, c = T.prefill(params, cfg, torch.tensor([donor], dtype=torch.int32, device=DEVICE))
+        kv.write_prefill(0, c["k"][:, 0], c["v"][:, 0], len(donor))
+
+    def suffix():
+        kp, vp = kv.gather_prefix(0, PREFIX_LEN)
+        tok = torch.tensor([follower[PREFIX_LEN:]], dtype=torch.int32, device=DEVICE)
+        _, c = T.prefill_suffix(params, cfg, tok, kp[:, None], vp[:, None])
+        kv.write_prefill(1, c["k"][:, 0], c["v"][:, 0], len(follower) - PREFIX_LEN,
+                         start=PREFIX_LEN)
+
+    out = {}
+    for name, fn in (("donor_cold", cold), ("follower_suffix", suffix)):
+        fn()
+        sync(torch)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(torch)
+        by_kernel = _device_by_kernel(prof)
+        total = sum(by_kernel.values())
+        k4 = sum(v for k, v in by_kernel.items() if "flash_prefill" in k)
+        top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
+        out[name] = dict(wall_ms=wall * 1e3, device_ms=total / 1e3, k4_ms=k4 / 1e3,
+                         k4_share=k4 / total if total else None,
+                         device_busy_share=(total / 1e6) / wall if wall else None,
+                         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+    del kv
+    return out
+
+
+def phase_e2e_prefix(torch, env) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_model
+    from repro_torch.sim.hardware import H100
+
+    tag = "e2e_prefix"
+    cfg = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    params = get_model(cfg).init(SEED, DEVICE)
+    rng = np.random.RandomState(SEED + 1)
+    prefix = rng.randint(0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    prompts = [prefix + rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in [DONOR_TAIL] + FOLLOWER_TAILS]
+    check(min(map(len, prompts)) > cfg.flash_threshold, "every prompt must take K4")
+    t0 = time.perf_counter()
+    mono = [[int(x) for x in T.greedy_generate(
+        params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE),
+        PREFIX_NEW_TOKENS)[0].cpu()] for p in prompts]
+    mono_s = time.perf_counter() - t0
+
+    def outs(reqs):
+        return [list(r.output_tokens) for r in reqs]
+
+    # (1) reuse on, layer windows. At these sizes the default H100 profile
+    # prices recomputing the prefix below fetching it (held on the CPU by
+    # test_torch_control_plane.py), so the router is given a card with little
+    # compute, as the reference's test does, to make it fetch.
+    hw = dataclasses.replace(H100, peak_flops=1e6)
+    run = _staggered(torch, cfg, params, prompts, prefix_reuse=True,
+                     layer_window=LAYER_WINDOW, hardware=hw)
+    on = _prefix_run_summary(*run, tag + " reuse on")
+    on_outs, on_counts = outs(run[1]), run[2]
+    check(on["prefix_hits"] >= 1 and on["prefix_fetches"] >= 1,
+          f"{tag}: reuse on gave {on['prefix_hits']} hits, {on['prefix_fetches']} fetches")
+    cold_k4 = on_counts["flash_prefill"] - on_counts["flash_prefill_suffix"]
+    check(cold_k4 > 0 and on_counts["flash_prefill_suffix"] > 0 and
+          on_counts["kv_gather"] > 0 and on_counts["kv_scatter"] > 0,
+          f"{tag}: K4 cold/suffix, K5a or K5b not launched: {on_counts}")
+    del run
+    gc.collect()
+    # (2) reuse off
+    run = _staggered(torch, cfg, params, prompts, prefix_reuse=False,
+                     layer_window=LAYER_WINDOW, hardware=hw)
+    off = _prefix_run_summary(*run, tag + " reuse off")
+    off_outs = outs(run[1])
+    check(off["prefix_hits"] == 0 and off["prefill_tokens_computed"] == off["total_prompt"],
+          f"{tag}: reuse off still reused: {off['prefix_hits']} hits")
+    del run
+    gc.collect()
+    # (4) chunked, reuse on
+    run = _staggered(torch, cfg, params, prompts, prefix_reuse=True,
+                     layer_window=LAYER_WINDOW, hardware=hw,
+                     prefill_chunk_tokens=CHUNK_TOKENS)
+    chunked = _prefix_run_summary(*run, tag + " chunked")
+    chunked_outs = outs(run[1])
+    check(len(chunked["timing"][0]["chunks"]) >= 3,
+          f"{tag}: the donor took {chunked['timing'][0]['chunks']}, want >= 3 chunks")
+    del run
+    gc.collect()
+    agree = {"reuse_on": on_outs == mono, "reuse_off": off_outs == mono,
+             "chunked": chunked_outs == mono}
+    check(all(agree.values()), f"{tag}: tokens differ from monolithic: {agree}")
+    profile_ = _profile_prefill(torch, cfg, params, prompts[0], prompts[-1])
+    emit(tag, model=cfg.name, dtype=str(cfg.dtype), layers=cfg.num_layers,
+         prefix_len=PREFIX_LEN, prompt_lens=[len(p) for p in prompts],
+         new_tokens=PREFIX_NEW_TOKENS, layer_window=LAYER_WINDOW,
+         chunk_tokens=CHUNK_TOKENS, router_profile="H100 with peak_flops=1e6",
+         monolithic_s=mono_s,
+         tokens_identical=agree, reuse_on=on, reuse_off=off, chunked=chunked,
+         prefill_profile=profile_)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return on_counts
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -572,19 +966,29 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch, env)
     phase_e2e(torch, torch.float32, env)
-    main_counts = phase_e2e(torch, torch.bfloat16, env)
+    decode_counts = phase_e2e(torch, torch.bfloat16, env)
+    prefill_counts = phase_e2e_prefix(torch, env)
+    # (source, replaced Pallas call, the path whose launch counts are reported)
     replaces = {
         "kv_transfer": ("src/repro_torch/csrc/kv_transfer.cu",
-                        "src/repro/kernels/kv_gather/kv_transfer.py:57"),
+                        "src/repro/kernels/kv_gather/kv_transfer.py:57", decode_counts),
         "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention/paged_attention.py:145"),
+                                   "src/repro/kernels/paged_attention/paged_attention.py:145",
+                                   decode_counts),
+        "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill/flash_prefill.py:113",
+                          prefill_counts),
+        "kv_gather": ("src/repro_torch/csrc/kv_transfer.cu",
+                      "src/repro/kernels/kv_gather/kv_gather.py:42", prefill_counts),
+        "kv_scatter": ("src/repro_torch/csrc/kv_transfer.cu",
+                       "src/repro/kernels/kv_gather/kv_scatter.py:36", prefill_counts),
     }
     kernels = []
-    for name, (source, rep) in replaces.items():
+    for name, (source, rep, counts) in replaces.items():
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
-            "launches": main_counts[name], "max_abs_err": row["max_abs_err"],
+            "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"]})

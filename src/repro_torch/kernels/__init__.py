@@ -7,22 +7,33 @@ the kernel on CUDA tensors (never falling back), and the plain PyTorch
 version in ``<name>/ref.py``. Each wrapper counts its launches in a
 ``launches`` attribute.
 
-Ported: K1 ``kv_gather/ops.kv_transfer`` (with K2, the fused decode append
-``kv_gather/kv_append``) and K3 ``paged_attention/ops.paged_decode_attention``.
+Ported, every TPU kernel of the reference: K1 ``kv_gather/ops.kv_transfer``
+(with K2, the fused decode append ``kv_gather/kv_append``), K3
+``paged_attention/ops.paged_decode_attention``, K4
+``flash_prefill/ops.flash_prefill_op``, and K5a/K5b
+``kv_gather/ops.kv_gather`` / ``kv_scatter`` (which launch K1's kernel).
 """
 from __future__ import annotations
 
 
-def launch_counts() -> dict:
-    """Kernel launches counted by every wrapper since the last reset."""
-    from repro_torch.kernels.kv_gather.ops import kv_transfer
+def _wrappers() -> dict:
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
+    from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter, kv_transfer
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-    return {"kv_transfer": kv_transfer.launches,
-            "paged_decode_attention": paged_decode_attention.launches}
+    return {"kv_transfer": kv_transfer, "paged_decode_attention": paged_decode_attention,
+            "flash_prefill": flash_prefill_op, "kv_gather": kv_gather,
+            "kv_scatter": kv_scatter}
+
+
+def launch_counts() -> dict:
+    """Kernel launches counted by every wrapper since the last reset, plus
+    ``flash_prefill_suffix``: the K4 launches in suffix mode."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts["flash_prefill_suffix"] = _wrappers()["flash_prefill"].suffix_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.kv_gather.ops import kv_transfer
-    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-    kv_transfer.launches = 0
-    paged_decode_attention.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+    _wrappers()["flash_prefill"].suffix_launches = 0

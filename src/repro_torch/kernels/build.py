@@ -40,6 +40,7 @@ _SIGNATURES = {
     "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "paged_decode_attention_smem_bytes": [_I, _I, _I, _I],
+    "flash_prefill_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
 }
 
 

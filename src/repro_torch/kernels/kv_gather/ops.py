@@ -1,15 +1,20 @@
-"""Wrapper of K1, the fused descriptor-table KV transfer.
+"""Wrappers of K1, the fused descriptor-table KV transfer, and of K5a/K5b,
+the whole-block gather and scatter.
 
-``kv_transfer`` runs the plain version (``ref.kv_transfer_ref``) when its
-tensors lie on the CPU, and launches the CUDA kernel
-(``csrc/kv_transfer.cu``) when they lie on a GPU — there is no fallback
-between the two. ``kv_transfer.launches`` counts kernel launches.
+Each runs its plain version (``ref.py``) when its tensors lie on the CPU,
+and launches the CUDA kernel (``csrc/kv_transfer.cu``) when they lie on a
+GPU — there is no fallback between the two. K5a and K5b launch K1's kernel
+at page granularity (one 64 KiB page per descriptor at qwen3-1.7b's widths,
+so every SM shares a block's copy) with a table built on the device. Each
+wrapper counts its own launches in ``launches``: ``kv_gather`` and
+``kv_scatter`` do not add to ``kv_transfer.launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.kv_gather.ref import kv_transfer_ref
+from repro_torch.kernels.kv_gather.ref import (kv_gather_ref, kv_scatter_ref,
+                                               kv_transfer_ref)
 
 
 def _check(src_pool: torch.Tensor, dst_pool: torch.Tensor,
@@ -45,26 +50,112 @@ def kv_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
         return kv_transfer_ref(src_pool, dst_pool, src_pages, dst_pages)
     if dev.type != "cuda":
         raise ValueError(f"kv_transfer: unsupported device {dev}")
-    from repro_torch.kernels import build
-
     if not src_pool.is_contiguous():
         raise ValueError("kv_transfer: src must be contiguous")
     if src_pages.dtype != torch.int32 or dst_pages.dtype != torch.int32:
         raise TypeError("kv_transfer: page tables must be int32")
-    n = int(src_pages.shape[0])
-    if n == 0:
-        return dst_pool
-    src_pages = src_pages.contiguous()
-    dst_pages = dst_pages.contiguous()
-    row_bytes = src_pool.shape[-1] * src_pool.element_size()
-    with torch.cuda.device(dev):
-        err = build.library().kv_transfer_launch(
-            src_pool.data_ptr(), dst_pool.data_ptr(), src_pages.data_ptr(),
-            dst_pages.data_ptr(), n, row_bytes,
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "kv_transfer")
-    kv_transfer.launches += 1
+    if _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer"):
+        kv_transfer.launches += 1
     return dst_pool
 
 
+def _launch_pages(src: torch.Tensor, dst: torch.Tensor, src_pages: torch.Tensor,
+                  dst_pages: torch.Tensor, what: str) -> bool:
+    """One K1 launch over flat ``(pages, payload)`` views of two contiguous
+    CUDA tensors; False (nothing launched) for an empty table."""
+    from repro_torch.kernels import build
+
+    n = int(src_pages.shape[0])
+    if n == 0:
+        return False
+    src_pages = src_pages.contiguous()
+    dst_pages = dst_pages.contiguous()
+    row_bytes = src.shape[-1] * src.element_size()
+    with torch.cuda.device(dst.device):
+        err = build.library().kv_transfer_launch(
+            src.data_ptr(), dst.data_ptr(), src_pages.data_ptr(),
+            dst_pages.data_ptr(), n, row_bytes,
+            torch.cuda.current_stream(dst.device).cuda_stream)
+    build.check(err, what)
+    return True
+
+
+def _check_blocks(pool: torch.Tensor, block_ids: torch.Tensor, what: str) -> torch.device:
+    if pool.dim() != 4 or pool.shape[2] != 2:
+        raise ValueError(f"{what}: pool {tuple(pool.shape)} is not (nb, L, 2, payload)")
+    if block_ids.dim() != 1:
+        raise ValueError(f"{what}: block_ids must be 1-D")
+    dev = pool.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if dev.type == "cuda":
+        if block_ids.dtype != torch.int32:
+            raise TypeError(f"{what}: block_ids must be int32")
+        if not pool.is_contiguous():
+            raise ValueError(f"{what}: the pool must be contiguous")
+    return dev
+
+
+def _page_table(block_ids: torch.Tensor, pages_per_block: int) -> torch.Tensor:
+    """Flat page ids of whole blocks, block-major: (n * pages_per_block,) int32."""
+    pages = torch.arange(pages_per_block, dtype=torch.int32, device=block_ids.device)
+    return (block_ids[:, None] * pages_per_block + pages[None, :]).reshape(-1)
+
+
+def kv_gather(pool: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
+    """K5a: ``out[i] = pool[block_ids[i]]``, whole blocks.
+
+    pool (nb, L, 2, payload); block_ids (n,) -> a new (n, L, 2, payload).
+    """
+    dev = _check_blocks(pool, block_ids, "kv_gather")
+    if block_ids.device != dev:
+        raise ValueError(f"kv_gather: block_ids on {block_ids.device}, pool on {dev}")
+    if dev.type == "cpu":
+        return kv_gather_ref(pool, block_ids)
+    n, (_, L, two, payload) = int(block_ids.shape[0]), pool.shape
+    out = torch.empty((n, L, two, payload), dtype=pool.dtype, device=dev)
+    per = L * two
+    dst_pages = torch.arange(n * per, dtype=torch.int32, device=dev)
+    if _launch_pages(pool, out, _page_table(block_ids, per), dst_pages, "kv_gather"):
+        kv_gather.launches += 1
+    return out
+
+
+def kv_scatter(pool: torch.Tensor, block_ids: torch.Tensor,
+               staging: torch.Tensor) -> torch.Tensor:
+    """K5b: ``pool[block_ids[i]] = staging[i]``, in place; blocks not named
+    keep their contents.
+
+    pool (nb, L, 2, payload); staging (n, L, 2, payload) in the pool's dtype
+    (K1 is a byte copy: the caller casts, as ``write_prefill`` does).
+    block_ids (n,) lie on the host, as the block manager hands them out:
+    duplicates, which would race on the card, raise there without a device
+    sync, and a CUDA pool gets them by an asynchronous upload. Returns ``pool``.
+    """
+    dev = _check_blocks(pool, block_ids, "kv_scatter")
+    n = int(block_ids.shape[0])
+    if block_ids.device.type != "cpu":
+        raise ValueError(f"kv_scatter: block_ids must lie on the host, not {block_ids.device}")
+    if staging.shape != (n, *pool.shape[1:]):
+        raise ValueError(f"kv_scatter: staging {tuple(staging.shape)} != "
+                         f"({n}, {', '.join(map(str, pool.shape[1:]))})")
+    if staging.device != dev:
+        raise ValueError(f"kv_scatter: staging on {staging.device}, pool on {dev}")
+    if staging.dtype != pool.dtype:
+        raise TypeError(f"kv_scatter is a byte copy: staging dtype {staging.dtype} "
+                        f"!= pool dtype {pool.dtype}; cast the staging first")
+    if torch.unique(block_ids).numel() != n:
+        raise ValueError("kv_scatter: duplicate block ids")
+    if dev.type == "cpu":
+        return kv_scatter_ref(pool, block_ids, staging)
+    per = pool.shape[1] * pool.shape[2]
+    src_pages = torch.arange(n * per, dtype=torch.int32, device=dev)
+    dst_pages = _page_table(block_ids.to(dev, non_blocking=True), per)
+    if _launch_pages(staging.contiguous(), pool, src_pages, dst_pages, "kv_scatter"):
+        kv_scatter.launches += 1
+    return pool
+
+
 kv_transfer.launches = 0
+kv_gather.launches = 0
+kv_scatter.launches = 0

@@ -1,14 +1,27 @@
-"""Plain PyTorch versions of K1 (descriptor-table transfer) and its batched
-token append. Port of ``repro/kernels/kv_gather/ref.py``.
+"""Plain PyTorch versions of K1 (descriptor-table transfer), its batched
+token append, and K5a/K5b (whole-block gather and scatter). Port of
+``repro/kernels/kv_gather/ref.py``.
 
 The wrappers in ``ops.py`` run these on CPU tensors; the tests and
 ``chip_smoke.py`` hold the CUDA kernel against them. Unlike the
-reference's functional oracles, both update ``dst`` / ``pool`` in place
-(the reference donates the destination) and return it.
+reference's functional oracles, the writers update ``dst`` / ``pool`` in
+place (the reference donates the destination) and return it.
 """
 from __future__ import annotations
 
 import torch
+
+
+def kv_gather_ref(pool: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
+    """pool (nb, L, 2, payload); block_ids (n,) -> staging (n, L, 2, payload)."""
+    return pool.index_select(0, block_ids.long())
+
+
+def kv_scatter_ref(pool: torch.Tensor, block_ids: torch.Tensor,
+                   staging: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`kv_gather_ref`: place staged blocks into the pool."""
+    pool[block_ids.long()] = staging.to(pool.dtype)
+    return pool
 
 
 def kv_transfer_ref(src_pool: torch.Tensor, dst_pool: torch.Tensor,

@@ -104,19 +104,34 @@ def attend(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
 def self_attention_heads(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                          positions: Tensor, window: int = 0
                          ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-    """:func:`self_attention` minus the output projection."""
-    from repro_torch.models.flash import flash_attention
+    """:func:`self_attention` minus the output projection.
 
+    Above ``cfg.flash_threshold`` tokens the reference leaves plain
+    attention for flash attention; here that branch is the K4 kernel
+    (``kernels/flash_prefill``), and windowed attention, which K4 does not
+    take, stays on ``models/flash.py``.
+    """
     q, k, v = qkv_project(p, x, cfg, positions)
     s = x.shape[1]
     if window > 0 or s > cfg.flash_threshold:
-        out = flash_attention(q, k, v, causal=True, window=window,
-                              q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-                              wedge=cfg.attn_wedge)
+        out = _flash(q, k, v, cfg, window, 0)
     else:
         mask = causal_mask(s, s, 0, window, x.device)[None, None, None]
         out = attend(q, k, v, mask)
     return out, (k, v)
+
+
+def _flash(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig, window: int,
+           offset: int) -> Tensor:
+    """The flash branch of prefill: K4 for causal attention, the chunked
+    ``models/flash.py`` for windowed attention."""
+    if window == 0:
+        from repro_torch.kernels.flash_prefill import flash_prefill_op
+        return flash_prefill_op(q, k, v, causal=True, q_offset=offset)
+    from repro_torch.models.flash import flash_attention
+    return flash_attention(q, k, v, causal=True, window=window,
+                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                           q_offset=offset)
 
 
 def self_attention(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
@@ -143,17 +158,13 @@ def suffix_attention_heads(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                            prefix_v: Tensor, window: int = 0
                            ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """:func:`suffix_attention` minus the output projection."""
-    from repro_torch.models.flash import flash_attention
-
     q, k, v = qkv_project(p, x, cfg, positions)
     k_full = torch.cat([prefix_k.to(k.dtype), k], dim=1)
     v_full = torch.cat([prefix_v.to(v.dtype), v], dim=1)
     s, t = x.shape[1], k_full.shape[1]
     offset = prefix_k.shape[1]
     if window > 0 or t > cfg.flash_threshold:
-        out = flash_attention(q, k_full, v_full, causal=True, window=window,
-                              q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-                              q_offset=offset, wedge=cfg.attn_wedge)
+        out = _flash(q, k_full, v_full, cfg, window, offset)
     else:
         mask = causal_mask(s, t, offset, window, x.device)[None, None, None]
         out = attend(q, k_full, v_full, mask)

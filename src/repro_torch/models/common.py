@@ -61,8 +61,7 @@ class ModelConfig:
     # attention impl knobs
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 1024
-    attn_wedge: bool = False         # exact-causal unrolled flash (models/flash.py)
-    flash_threshold: int = 1024      # use chunked flash above this seq length
+    flash_threshold: int = 1024      # prefill attention takes K4 above this length
     moe_sparse_dispatch: bool = False
     moe_dispatch: str = "dense"
     moe_capacity_factor: float = 1.25

@@ -8,7 +8,9 @@ holds ``self.pool`` sees stale bytes. The control plane (which blocks
 belong to whom) is ``core.block_manager.BlockManager``.
 
 ``write_prefill`` / ``gather_dense`` / ``append_token`` bridge between the
-model's dense cache format (L, S, KV, hd) and pages. At serving time the
+model's dense cache format (L, S, KV, hd) and pages; the first two move
+whole blocks through K5b (``kv_scatter``) and K5a (``kv_gather``), one
+launch each. At serving time the
 decode plane reads pages in place through the paged kernel and appends the
 batch's new K/V with one fused K1 launch (``export_block_tables`` /
 ``append_tokens`` are its host-side ports).
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.core.block_manager import BlockManager
 from repro_torch.core.layout import KVCacheSpec, KVLayout, alloc_cache
+from repro_torch.kernels.kv_gather import kv_gather, kv_scatter
 from repro_torch.models.common import ModelConfig
 
 
@@ -56,7 +59,8 @@ class PagedKVCache:
         self.num_pool_dispatches = 0     # host-issued operations on the pool
 
     def _ids(self, blocks: Sequence[int]) -> torch.Tensor:
-        return torch.as_tensor(list(blocks), dtype=torch.long).to(self.device)
+        return torch.as_tensor(list(blocks), dtype=torch.int32).to(self.device,
+                                                                    non_blocking=True)
 
     # -- write path -------------------------------------------------------------
     def write_prefill(self, request_id: int, k: torch.Tensor, v: torch.Tensor,
@@ -83,7 +87,8 @@ class PagedKVCache:
         # (L, nb, bs, KV, hd) -> (nb, L, bs*KV*hd)
         kp = k.reshape(L, nb, spec.block_size, -1).permute(1, 0, 2, 3).reshape(nb, L, -1)
         vp = v.reshape(L, nb, spec.block_size, -1).permute(1, 0, 2, 3).reshape(nb, L, -1)
-        self.pool[self._ids(blocks[:nb])] = torch.stack([kp, vp], dim=2).to(spec.dtype)
+        kv = torch.stack([kp, vp], dim=2).to(spec.dtype)      # (nb, L, 2, payload)
+        kv_scatter(self.pool, torch.as_tensor(blocks[:nb], dtype=torch.int32), kv)
         self.num_pool_dispatches += 1
         return blocks[:nb]
 
@@ -143,7 +148,7 @@ class PagedKVCache:
         blocks = self.bm.get(request_id)
         if num_blocks is not None:
             blocks = blocks[:num_blocks]
-        pages = self.pool.index_select(0, self._ids(blocks))   # (nb, L, 2, payload)
+        pages = kv_gather(self.pool, self._ids(blocks))        # (nb, L, 2, payload)
         self.num_pool_dispatches += 1
         nb = pages.shape[0]
         L = spec.num_layers

@@ -169,3 +169,39 @@ def test_h100_profile_from_the_data_sheet():
     assert get_hardware("h100") is H100
     assert (H100.peak_flops, H100.hbm_bandwidth, H100.hbm_bytes) == (989e12, 3.35e12, 80e9)
     assert H100.intra_host is CM.IPC and H100.inter_host is CM.NCCL_ENI
+
+
+@pytest.mark.parametrize("tail", [96, 200, 400])
+def test_h100_router_recomputes_a_1056_token_prefix(tail):
+    """The routing decision behind chip_smoke.py's e2e_prefix phase: for
+    qwen3-1.7b in fp32 with a 1056-token prefix resident on the other node,
+    the controller's own prices make recomputing the prefix on an H100
+    cheaper than fetching it over NCCL, so the phase hands the router an
+    H100 with peak_flops=1e6 (as the reference's prefix test does), under
+    which the fetch wins."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler.global_controller import (GlobalController, ModelCost,
+                                                              NodeHandle)
+    from repro_torch.core.scheduler.hybrid_scheduler import HybridScheduler
+    from repro_torch.serving.request import Request
+    from repro_torch.sim.hardware import H100
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype=torch.float32)
+    cost = ModelCost(flops_per_token=2.0 * cfg.active_params(),     # as PDCluster prices it
+                     kv_bytes_per_token=float(cfg.kv_bytes_per_token()),
+                     weight_bytes=2.0 * cfg.num_params())
+    prefix, req = 1056, Request(prompt_tokens=[1] * (1056 + tail))
+    for hw, fetch_wins in ((H100, False), (dataclasses.replace(H100, peak_flops=1e6), True)):
+        ctrl = GlobalController(cost, cfg.block_size, target="gpu")
+        p, d = (NodeHandle(node_id=i, role=role, host_id=i, hardware=hw,
+                           scheduler=HybridScheduler(i, BM.BlockManager(256, cfg.block_size),
+                                                     max_batch_tokens=4096))
+                for i, role in enumerate(["prefill", "decode"]))
+        recompute = ctrl._ttft_estimate(p, req, hit=0)
+        fetch = ctrl._ttft_estimate(p, req, hit=prefix) + \
+            ctrl._prefix_fetch_estimate(d, p, prefix)
+        assert (fetch < recompute) == fetch_wins, (hw.peak_flops, fetch, recompute)
