@@ -17,9 +17,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  and B=8 with lengths up to ~2k, a padded table and a
                  length-0 row, in float32 and bfloat16 (stated tolerances);
                  K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
-                 and at gemma-2b's head shape, in both dtypes, plus its
-                 suffix rows bit-identical to its cold rows in fp32; K5a
-                 (33-block gather) and K5b (47-block scatter), bit-exact;
+                 and at gemma-2b's head shape, in both dtypes (bf16 on the
+                 tensor cores), plus its suffix rows bit-identical to its
+                 cold rows in fp32 and in bf16; K5a (33-block gather, its
+                 own block copy) and K5b (47-block scatter), bit-exact;
                  kernel, plain, bound and library times.
 4. ``e2e_fp32`` — FlowKVClient on full-width, full-depth qwen3-1.7b in
                  float32 (1 prefill + 1 decode node, 256 blocks, 4 prompts
@@ -31,8 +32,10 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  to monolithic prefill, one paged step's logits within a
                  stated tolerance of the dense step on the same state, full
                  token agreement reported; TTFT, transfer and per-step decode
-                 wall times. This run is the main path whose K1 and K3
-                 launch counts go into the ``kernels`` line.
+                 wall times; the device-time split (GEMMs, K4, K5b, rest) of
+                 one cold prefill of the 1500-token prompt with its pool
+                 write. This run is the main path whose K1 and K3 launch
+                 counts go into the ``kernels`` line.
 6. ``e2e_prefix`` — the prefill data plane on full-width, full-depth
                  qwen3-1.7b in float32: a 1056-token shared prefix, a donor
                  and three followers served on 1P+1D with prefix reuse and
@@ -415,18 +418,20 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
                             bound_ms=b4, bound_by=b4_by)
             del q, k, v, out, same
     # row independence: rows 1056.. of the cold call == the suffix call's rows
-    q = torch.randn((1, 1456, 16, 128), generator=gen, device=DEVICE)
-    k = torch.randn((1, 1456, 8, 128), generator=gen, device=DEVICE)
-    v = torch.randn((1, 1456, 8, 128), generator=gen, device=DEVICE)
-    cold = flash_prefill_op(q, k, v)
-    identical = {}
-    for off in (1056, 1000, 1455):
-        identical[off] = bool(torch.equal(flash_prefill_op(q[:, off:], k, v, q_offset=off),
-                                          cold[:, off:]))
-    sync(torch)
-    emit("kernels", kernel="flash_prefill", case="suffix rows == cold rows (fp32)",
-         T=1456, offsets_bit_identical=identical)
-    check(all(identical.values()), f"K4 suffix rows differ from its cold rows: {identical}")
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+        q, k, v = mk(1, 1456, 16, 128), mk(1, 1456, 8, 128), mk(1, 1456, 8, 128)
+        cold = flash_prefill_op(q, k, v)
+        identical = {}
+        for off in (1056, 1000, 1455):
+            identical[off] = bool(torch.equal(flash_prefill_op(q[:, off:], k, v, q_offset=off),
+                                              cold[:, off:]))
+        sync(torch)
+        emit("kernels", kernel="flash_prefill", case=f"suffix rows == cold rows ({name})",
+             T=1456, offsets_bit_identical=identical)
+        check(all(identical.values()),
+              f"K4 {name} suffix rows differ from its cold rows: {identical}")
+        del q, k, v, cold
     return {"flash_prefill": main}
 
 
@@ -625,6 +630,9 @@ def phase_e2e(torch, dtype, env):
               f"{tag}: paged step logits off by {step_err} (scale {scale})")
     if dtype == torch.bfloat16:
         data.update(step_and_transfer_timing(torch, cfg, params, prompts))
+        data["cold_prefill_profile"] = profile_cold_prefill(torch, cfg, params, prompts[-1])
+        check(data["cold_prefill_profile"]["k4_ms"] > 0,
+              f"{tag}: the cold prefill of {len(prompts[-1])} tokens launched no K4")
     emit(tag, **data)
     # handles and client reference each other: collect the cycle so this
     # run's weights and pools are gone before the next phase measures
@@ -645,10 +653,74 @@ def _device_by_kernel(prof) -> dict:
     """Device microseconds by kernel name from a torch.profiler run."""
     by_kernel = {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False) or evt.key.startswith("ProfilerStep"):
+            continue                    # a range on the device timeline, not a kernel
         us = _device_us(evt)
         if us > 0 and evt.device_type is not None and "CUDA" in str(evt.device_type):
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
     return by_kernel
+
+
+# kernel-name fragments of each part of a prefill's device time
+PREFILL_PARTS = (("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")),
+                 ("k4", ("flash_prefill",)),
+                 ("k5a", ("kv_gather_blocks",)),
+                 ("k5b", ("kv_transfer_kernel",)))
+
+
+def _profile_split(torch, fn) -> dict:
+    """One synchronized wall and a torch.profiler device-time split of
+    ``fn`` (run once before, unprofiled): bf16/fp32 GEMMs, K4, K5a, K5b and
+    the rest, with K4's share and the top kernels. The profiler records the
+    second of two runs, after a warm-up step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    sync(torch)
+    t0 = time.perf_counter()
+    fn()
+    sync(torch)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            sync(torch)
+            prof.step()
+    by_kernel = _device_by_kernel(prof)
+    total = sum(by_kernel.values())
+    parts = {name: 0.0 for name, _ in PREFILL_PARTS}
+    parts["rest"] = 0.0
+    for key, us in by_kernel.items():
+        low = key.lower()
+        part = next((name for name, frags in PREFILL_PARTS
+                     if any(f in low for f in frags)), "rest")
+        parts[part] += us
+    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
+    return dict(wall_ms=wall * 1e3, device_ms=total / 1e3, k4_ms=parts["k4"] / 1e3,
+                k4_share=parts["k4"] / total if total else None,
+                split_ms={k: v / 1e3 for k, v in parts.items()},
+                device_busy_share=(total / 1e6) / wall if wall else None,
+                top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+
+
+def profile_cold_prefill(torch, cfg, params, prompt) -> dict:
+    """The device-time split of one cold prefill of ``prompt`` with its pool
+    write (K5b), outside the cluster loop."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
+
+    kv = PagedKVCache(spec_for_model(cfg, 64), device=DEVICE)
+    kv.bm.allocate(0, len(prompt))                 # each call rewrites the same blocks
+    tok = torch.tensor([prompt], dtype=torch.int32, device=DEVICE)
+
+    def cold():
+        _, c = T.prefill(params, cfg, tok)
+        kv.write_prefill(0, c["k"][:, 0], c["v"][:, 0], len(prompt))
+
+    out = dict(prompt_len=len(prompt), **_profile_split(torch, cold))
+    del kv
+    return out
 
 
 def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
@@ -824,8 +896,6 @@ def _profile_prefill(torch, cfg, params, donor, follower) -> dict:
     """Device time by kernel of the donor's cold prefill and of one
     follower's suffix prefill over the cached prefix, each with its pool
     write (and the follower's prefix read), outside the cluster loop."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import transformer as T
     from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
 
@@ -844,25 +914,8 @@ def _profile_prefill(torch, cfg, params, donor, follower) -> dict:
         kv.write_prefill(1, c["k"][:, 0], c["v"][:, 0], len(follower) - PREFIX_LEN,
                          start=PREFIX_LEN)
 
-    out = {}
-    for name, fn in (("donor_cold", cold), ("follower_suffix", suffix)):
-        fn()
-        sync(torch)
-        t0 = time.perf_counter()
-        fn()
-        sync(torch)
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync(torch)
-        by_kernel = _device_by_kernel(prof)
-        total = sum(by_kernel.values())
-        k4 = sum(v for k, v in by_kernel.items() if "flash_prefill" in k)
-        top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
-        out[name] = dict(wall_ms=wall * 1e3, device_ms=total / 1e3, k4_ms=k4 / 1e3,
-                         k4_share=k4 / total if total else None,
-                         device_busy_share=(total / 1e6) / wall if wall else None,
-                         top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+    out = {name: _profile_split(torch, fn)
+           for name, fn in (("donor_cold", cold), ("follower_suffix", suffix))}
     del kv
     return out
 
@@ -978,7 +1031,7 @@ def main() -> int:
         "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                           "src/repro/kernels/flash_prefill/flash_prefill.py:113",
                           prefill_counts),
-        "kv_gather": ("src/repro_torch/csrc/kv_transfer.cu",
+        "kv_gather": ("src/repro_torch/csrc/kv_gather.cu",
                       "src/repro/kernels/kv_gather/kv_gather.py:42", prefill_counts),
         "kv_scatter": ("src/repro_torch/csrc/kv_transfer.cu",
                        "src/repro/kernels/kv_gather/kv_scatter.py:36", prefill_counts),

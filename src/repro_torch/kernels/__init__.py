@@ -11,7 +11,8 @@ Ported, every TPU kernel of the reference: K1 ``kv_gather/ops.kv_transfer``
 (with K2, the fused decode append ``kv_gather/kv_append``), K3
 ``paged_attention/ops.paged_decode_attention``, K4
 ``flash_prefill/ops.flash_prefill_op``, and K5a/K5b
-``kv_gather/ops.kv_gather`` / ``kv_scatter`` (which launch K1's kernel).
+``kv_gather/ops.kv_gather`` (its own block copy) / ``kv_scatter`` (which
+launches K1's kernel).
 """
 from __future__ import annotations
 

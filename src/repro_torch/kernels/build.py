@@ -37,10 +37,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "kv_transfer_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _VP],
+    "kv_gather_blocks_launch": [_VP, _VP, _VP, _LL, _LL, _VP],
     "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "paged_decode_attention_smem_bytes": [_I, _I, _I, _I],
     "flash_prefill_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "flash_prefill_scale_check": [_VP, _VP, _LL, _I, _VP],
 }
 
 

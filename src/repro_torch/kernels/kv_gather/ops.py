@@ -2,12 +2,14 @@
 the whole-block gather and scatter.
 
 Each runs its plain version (``ref.py``) when its tensors lie on the CPU,
-and launches the CUDA kernel (``csrc/kv_transfer.cu``) when they lie on a
-GPU — there is no fallback between the two. K5a and K5b launch K1's kernel
-at page granularity (one 64 KiB page per descriptor at qwen3-1.7b's widths,
-so every SM shares a block's copy) with a table built on the device. Each
-wrapper counts its own launches in ``launches``: ``kv_gather`` and
-``kv_scatter`` do not add to ``kv_transfer.launches``.
+and launches its CUDA kernel when they lie on a GPU — there is no fallback
+between the two. K1 and K5b launch ``csrc/kv_transfer.cu``; K5b does so at
+page granularity (one 64 KiB page per descriptor at qwen3-1.7b's widths,
+so every SM shares a block's copy) with a table built on the device. K5a
+launches its own block-copy kernel (``csrc/kv_gather.cu``), which reads the
+block ids itself and needs no table. Each wrapper counts its own launches
+in ``launches``: ``kv_gather`` and ``kv_scatter`` do not add to
+``kv_transfer.launches``.
 """
 from __future__ import annotations
 
@@ -106,18 +108,28 @@ def kv_gather(pool: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     """K5a: ``out[i] = pool[block_ids[i]]``, whole blocks.
 
     pool (nb, L, 2, payload); block_ids (n,) -> a new (n, L, 2, payload).
+    On the card: one launch of the block copy, which reads the ids itself;
+    duplicate ids are fine.
     """
     dev = _check_blocks(pool, block_ids, "kv_gather")
     if block_ids.device != dev:
         raise ValueError(f"kv_gather: block_ids on {block_ids.device}, pool on {dev}")
     if dev.type == "cpu":
         return kv_gather_ref(pool, block_ids)
+    from repro_torch.kernels import build
+
     n, (_, L, two, payload) = int(block_ids.shape[0]), pool.shape
     out = torch.empty((n, L, two, payload), dtype=pool.dtype, device=dev)
-    per = L * two
-    dst_pages = torch.arange(n * per, dtype=torch.int32, device=dev)
-    if _launch_pages(pool, out, _page_table(block_ids, per), dst_pages, "kv_gather"):
-        kv_gather.launches += 1
+    block_bytes = L * two * payload * pool.element_size()
+    if n == 0 or block_bytes == 0:
+        return out
+    ids = block_ids.contiguous()
+    with torch.cuda.device(dev):
+        err = build.library().kv_gather_blocks_launch(
+            pool.data_ptr(), out.data_ptr(), ids.data_ptr(), n, block_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "kv_gather")
+    kv_gather.launches += 1
     return out
 
 

@@ -120,12 +120,14 @@ def test_flash_prefill_refuses_bad_calls():
 # ---------------------------------------------------------------------------
 # K5a / K5b: whole-block gather and scatter
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("payload", [64, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [1, 5, 16])
-def test_kv_gather_matches_reference_kernel(ref, dtype, n):
+def test_kv_gather_matches_reference_kernel(ref, dtype, n, payload):
+    """payload 5 gives blocks that are not a multiple of 16 bytes."""
     jnp, _, rk = ref
     rng = np.random.RandomState(n)
-    pool_j, pool_t = _pair(jnp, rng.randn(32, 3, 2, 64), dtype)
+    pool_j, pool_t = _pair(jnp, rng.randn(32, 3, 2, payload), dtype)
     ids = rng.randint(0, 32, size=n).astype(np.int32)      # repeats allowed
     want = rk.kv_gather(pool_j, jnp.asarray(ids))
     np.testing.assert_array_equal(np.asarray(want, np.float32),
@@ -245,21 +247,107 @@ def test_cuda_flash_prefill_matches_plain(dtype, hd, KV, H):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (256, 1, 8), (16, 2, 4)])
-def test_cuda_flash_prefill_suffix_rows_bit_identical(hd, KV, H):
+def test_cuda_flash_prefill_suffix_rows_bit_identical(hd, KV, H, dtype):
     """Row q_offset + i of a suffix call equals that row of the cold call,
-    bit for bit in fp32, for offsets on and off the tile grid."""
+    bit for bit in each dtype, for offsets on and off the tile grid (the
+    bf16 kernel also picks another block size for the short suffixes)."""
     _require_sm90()
     g = torch.Generator(device="cuda").manual_seed(3)
     t = 333
-    q = torch.randn((1, t, H, hd), generator=g, device="cuda")
-    k = torch.randn((1, t, KV, hd), generator=g, device="cuda")
-    v = torch.randn((1, t, KV, hd), generator=g, device="cuda")
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(TORCH[dtype])  # noqa: E731
+    q, k, v = mk(1, t, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
     cold = flash_prefill_op(q, k, v)
     for off in (1, 32, 100, 257, 332):
         suf = flash_prefill_op(q[:, off:], k, v, q_offset=off)
         torch.cuda.synchronize()
         assert torch.equal(suf, cold[:, off:]), off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 256) for g in (1, 2, 8)]
+                         + [(128, 3), (64, 64)])
+def test_cuda_flash_prefill_bf16_ragged(hd, G):
+    """The bf16 tensor-core kernel at every head dim and group size (G = 3
+    leaves pairs of a block unused; G = 64 is the largest the wrapper
+    takes), cold over a length that is no multiple of a query or key tile
+    and in suffix mode at offsets off the key-tile grid: within half a bf16
+    ulp (+1e-5) of the plain version on the upcast values and 3e-2 of it on
+    the bf16 values, suffix rows bit-identical to the cold rows."""
+    _require_sm90()
+    g = torch.Generator(device="cuda").manual_seed(hd + G)
+    b, t, KV = 2, 301, 2 if G <= 8 else 1
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q_full, k, v = mk(b, t, G * KV, hd), mk(b, t, KV, hd), mk(b, t, KV, hd)
+    cold = flash_prefill_op(q_full, k, v)
+    for off in (0, 45, 190, 300):
+        q = q_full[:, off:]
+        out = cold if off == 0 else flash_prefill_op(q, k, v, q_offset=off)
+        up = flash_prefill_ref(q.float(), k.float(), v.float(), q_offset=off)
+        same = flash_prefill_ref(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        err = (out.float() - up).abs()
+        assert bool((err <= up.abs() * 2.0 ** -8 + 1e-5).all()), (off, float(err.max()))
+        assert float((out.float() - same.float()).abs().max()) <= TOL["bfloat16"], off
+        assert torch.equal(out, cold[:, off:]), off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_cuda_flash_prefill_scale_is_a_division(hd):
+    """The bf16 kernel scales scores by a reciprocal and one FMA correction;
+    it must equal a rounded division by the fp32 sqrt(hd) on every fp32
+    score that is finite and at least 2^-100 in magnitude, and on zero."""
+    _require_sm90()
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    d = torch.tensor(float(np.sqrt(np.float32(hd), dtype=np.float32)), device="cuda")
+    n = 1 << 28
+    for base in range(-(1 << 31), 1 << 31, n):
+        x = torch.arange(base, base + n, dtype=torch.int32, device="cuda").view(torch.float32)
+        keep = torch.isfinite(x) & ((x.abs() >= 2.0 ** -100) | (x == 0))
+        got = torch.empty_like(x)
+        build.check(lib.flash_prefill_scale_check(x.data_ptr(), got.data_ptr(), n, hd,
+                                                  torch.cuda.current_stream().cuda_stream),
+                    "flash_prefill_scale_check")
+        want = x / d.expand_as(x)               # elementwise div.rn on the card
+        bad = int(((got != want) & keep).sum())
+        assert bad == 0, (hd, base, bad)
+        del x, keep, got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,L,payload,skew,n", [
+    ("bfloat16", 4, 32 * 8 * 16, 0, 6),      # qwen3-like page, 16-byte words
+    ("bfloat16", 3, 5, 0, 6),                # 60-byte blocks: 4-byte words
+    ("uint8", 3, 3, 0, 6),                   # 18-byte blocks: 2-byte words
+    ("uint8", 3, 3, 1, 6),                   # pool at an odd address: 1-byte words
+    ("bfloat16", 28, 32 * 8 * 128, 0, 1),    # one whole qwen3-1.7b block
+])
+def test_cuda_kv_gather_blocks(dtype, L, payload, skew, n):
+    """K5a's block copy for any block width and n = 1: bit-exact against
+    the plain version, one launch of its own per call, no K1 launch."""
+    _require_sm90()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nb = 40
+    numel = nb * L * 2 * payload
+    if dtype == "uint8":
+        flat = torch.randint(0, 256, (numel + skew,), generator=g, device="cuda",
+                             dtype=torch.uint8)
+    else:
+        flat = torch.randn(numel + skew, generator=g, device="cuda").to(TORCH[dtype])
+    pool = flat[skew:].view(nb, L, 2, payload)
+    assert pool.is_contiguous() and pool.data_ptr() % 2 == skew
+    ids = torch.randint(0, nb, (n,), generator=g, device="cuda", dtype=torch.int32)
+    xfer, before = kv_transfer.launches, kv_gather.launches
+    got = kv_gather(pool, ids)
+    assert kv_gather.launches == before + 1
+    assert kv_transfer.launches == xfer
+    torch.cuda.synchronize()
+    assert torch.equal(got, kv_gather_ref(pool, ids))
+    assert got.shape == (n, L, 2, payload) and got.is_contiguous()
 
 
 @pytest.mark.gpu
