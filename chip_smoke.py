@@ -13,15 +13,19 @@ Phases, each printing one JSON line (any failure exits nonzero):
 3. ``kernels`` — each hand-written kernel against its plain PyTorch version
                  on the card at the main path's shapes (qwen3-1.7b: L=28,
                  KV=8, hd=128, block 32): K1 on a 1000-token P->D transfer
-                 table and on a B=8 decode append (bit-exact), K3 at B=1
-                 and B=8 with lengths up to ~2k, a padded table and a
-                 length-0 row, in float32 and bfloat16 (stated tolerances);
+                 table and on a B=8 decode append (bit-exact, plus the
+                 kernel's own device time from torch.profiler), K3 at B=1,
+                 at B=8 with lengths up to ~2k, a padded table and a
+                 length-0 row, and at the e2e decode step's B=4, in float32
+                 and bfloat16 (stated tolerances), each B=8 row bit-identical
+                 to the same row alone at B=1;
                  K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
                  and at gemma-2b's head shape, in both dtypes (bf16 on the
                  tensor cores), plus its suffix rows bit-identical to its
                  cold rows in fp32 and in bf16; K5a (33-block gather, its
-                 own block copy) and K5b (47-block scatter), bit-exact;
-                 kernel, plain, bound and library times.
+                 own block copy) and K5b (47-block scatter), bit-exact, K5b
+                 also timed device-only; kernel, plain, bound and library
+                 times.
 4. ``e2e_fp32`` — FlowKVClient on full-width, full-depth qwen3-1.7b in
                  float32 (1 prefill + 1 decode node, 256 blocks, 4 prompts
                  of 200-1500 tokens, 16 new tokens each): tokens identical
@@ -32,7 +36,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  to monolithic prefill, one paged step's logits within a
                  stated tolerance of the dense step on the same state, full
                  token agreement reported; TTFT, transfer and per-step decode
-                 wall times; the device-time split (GEMMs, K4, K5b, rest) of
+                 wall times, K3's device time and share of the step; the
+                 device-time split (GEMMs, K4, K5b, rest) of
                  one cold prefill of the 1500-token prompt with its pool
                  write. This run is the main path whose K1 and K3 launch
                  counts go into the ``kernels`` line.
@@ -146,6 +151,29 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
+def device_only_ms(torch, fn, frag: str, reps: int = 20, flush=None) -> float:
+    """The device time, per call of ``fn``, of the kernels whose names hold
+    ``frag``: torch.profiler over ``reps`` calls after a warm-up, so the
+    host work around the launch (which a CUDA-event window holds) is out.
+    A profile that recorded no such kernel (the tracer dropped its device
+    records, seen once in many sessions) is taken again, up to 3 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(torch)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            sync(torch)
+        us = sum(v for k, v in _device_by_kernel(prof).items() if frag in k)
+        if us > 0:
+            return us / reps / 1e3
+    fail(f"the profiler saw no kernel named *{frag}* in 3 profiles")
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -198,8 +226,6 @@ def phase_kernels(torch, env) -> dict:
     from repro_torch.kernels.kv_gather import (append_slot_ids, kv_append_ref,
                                                kv_append_tokens, kv_transfer,
                                                kv_transfer_ref, stage_tokens)
-    from repro_torch.kernels.paged_attention import (paged_decode_attention,
-                                                     paged_decode_attention_stats_ref)
 
     peaks = env["peaks"]
     cfg = get_config(ARCH)
@@ -276,30 +302,53 @@ def phase_kernels(torch, env) -> dict:
     t_pa = time_ms(torch, lambda: kv_transfer_ref(staging, view, srcid, ids), flush=flush)
     t_la = time_ms(torch, lambda: vflat.index_copy_(0, idl, staging.index_select(0, srl)),
                    flush=flush)
+    t_da = device_only_ms(torch, lambda: kv_transfer(staging, view, srcid, ids),
+                          "kv_transfer_kernel", flush=flush)
     a_bytes = 2 * na * KV * hd * 2 + 2 * na * 4
     ba_ms, _ = bound_ms(a_bytes, 0, peaks, "bf16")
     emit("kernels", kernel="kv_transfer", case="decode_append B=8 (2 pad lanes)",
          rows=na, row_bytes=KV * hd * 2, bit_exact=a_exact, max_abs_err=a_err,
-         ms=t_ka, plain_ms=t_pa,
+         ms=t_ka, device_only_ms=t_da, plain_ms=t_pa,
          library_ms=t_la, bound_ms=ba_ms)
     del pool, pool_k, pool_p, view, vflat
 
     # -- K3: paged decode attention over one layer of a 28-layer pool ---------
+    rows["paged_decode_attention"] = _k3_cases(torch, peaks, gen, flush, L, KV, hd, bs, H)
+    rows.update(_k4_cases(torch, peaks, gen, flush))
+    rows.update(_k5_cases(torch, peaks, gen, flush, L, bs, KV, hd))
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+# K3 cases: (batch, lengths, table width); the last is e2e_bf16's decode step
+K3_CASES = [(1, [2000], 64), (8, [2047, 1500, 0, 33, 1024, 1999, 700, 64], 64),
+            (4, [200, 640, 1100, 1500], 64)]
+
+
+def _k3_cases(torch, peaks, gen, flush, L, KV, hd, bs, H) -> dict:
+    """K3 against its plain version at B=1, B=8 (a length-0 row, a padded
+    table) and the e2e decode step's B=4, in float32 and bfloat16; and each
+    row of the B=8 case bit-identical to the same row alone at B=1 with a
+    table exactly its pages wide."""
+    from repro_torch.core.layout import KVCacheSpec
+    from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                     paged_decode_attention_stats_ref)
+
     nb = 512
-    cases = [(1, [2000], 64), (8, [2047, 1500, 0, 33, 1024, 1999, 700, 64], 64)]
-    k3_main = None
+    main = None
+    layer = L * 3 // 5
     for dtype in (torch.float32, torch.bfloat16):
         pspec = KVCacheSpec(num_layers=L, num_blocks=nb, block_size=bs,
                             num_kv_heads=KV, head_dim=hd, dtype=dtype)
-        kpool = torch.randn(pspec.shape, generator=gen, device=dev).to(dtype)
-        for B, lens, W in cases:
-            layer = L * 3 // 5
-            q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
-            bt = torch.stack([torch.randperm(nb, generator=gen, device=dev)[:W]
+        kpool = torch.randn(pspec.shape, generator=gen, device=DEVICE).to(dtype)
+        for B, lens, W in K3_CASES:
+            q = torch.randn((B, H, hd), generator=gen, device=DEVICE).to(dtype)
+            bt = torch.stack([torch.randperm(nb, generator=gen, device=DEVICE)[:W]
                               for _ in range(B)]).to(torch.int32)
             for i, ln in enumerate(lens):              # zero-pad past each row's pages
                 bt[i, -(-ln // bs):] = 0
-            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
             out, m, l = paged_decode_attention(q, kpool, layer, bt, lengths,
                                                block_size=bs, return_stats=True)
             ro, rm, rl = paged_decode_attention_stats_ref(q, kpool[:, layer], bt, lengths, bs)
@@ -326,6 +375,17 @@ def phase_kernels(torch, env) -> dict:
                 ok = ok and up_err <= BF16_UPCAST_TOL and up_m <= 1e-4 and up_l <= 1e-4
             check(ok, f"K3 disagrees ({dtype}, B={B}): out {err}, m {err_m}, "
                       f"l rel {err_l}, vs upcast {up_err}")
+            identical = None
+            if B == 8:                                  # a row alone == the row in the batch
+                identical = {}
+                for r, ln in enumerate(lens):
+                    own = bt[r:r + 1, :max(1, -(-ln // bs))].contiguous()
+                    one = paged_decode_attention(q[r:r + 1], kpool, layer, own, lengths[r:r + 1],
+                                                 block_size=bs, return_stats=True)
+                    identical[ln] = all(bool(torch.equal(a[r:r + 1], b_))
+                                        for a, b_ in zip((out, m, l), one))
+                check(all(identical.values()),
+                      f"K3 {dtype}: rows alone differ from the same rows at B=8: {identical}")
             valid = sum(lens)
             esz = pspec.dtype.itemsize
             nbytes = (2 * valid * KV * hd * esz + 2 * q.numel() * esz
@@ -338,21 +398,21 @@ def phase_kernels(torch, env) -> dict:
                 q, kpool, layer, bt, lengths, block_size=bs, return_stats=True), flush=flush)
             t3p = time_ms(torch, lambda: paged_decode_attention_stats_ref(
                 q, plane, bt, lengths, bs), flush=flush)
+            t3d = device_only_ms(torch, lambda: paged_decode_attention(
+                q, kpool, layer, bt, lengths, block_size=bs, return_stats=True),
+                "paged_decode", flush=flush)
             emit("kernels", kernel="paged_decode_attention", dtype=str(dtype), batch=B,
                  lengths=lens, table_width=W, max_abs_err=err, m_err=err_m,
                  l_rel_err=err_l, vs_upcast_err=up_err, length0_ok=zero_ok,
-                 ms=t3, plain_ms=t3p, bound_ms=b3, bound_by=b3_by, bytes=nbytes)
-            if dtype == torch.bfloat16 and B == 8:
-                k3_main = dict(shape=f"B=8 bf16, lengths {lens}, W={W}", max_abs_err=err,
-                               ms=t3, plain_ms=t3p, library_ms=None, bound_ms=b3,
-                               bound_by=b3_by)
+                 rows_alone_bit_identical=identical, ms=t3, device_only_ms=t3d, plain_ms=t3p,
+                 faster_than_plain=t3 < t3p, bound_ms=b3, bound_by=b3_by,
+                 bound_share=b3 / t3, bytes=nbytes)
+            if dtype == torch.bfloat16 and B == 4:
+                main = dict(shape=f"B=4 bf16 (the e2e decode step), lengths {lens}, W={W}",
+                            max_abs_err=err, ms=t3, plain_ms=t3p, library_ms=None,
+                            bound_ms=b3, bound_by=b3_by)
         del kpool
-    rows["paged_decode_attention"] = k3_main
-    rows.update(_k4_cases(torch, peaks, gen, flush))
-    rows.update(_k5_cases(torch, peaks, gen, flush, L, bs, KV, hd))
-    del flush
-    torch.cuda.empty_cache()
-    return rows
+    return main
 
 
 def _sdpa(torch, q, k, v, q_offset):
@@ -483,10 +543,13 @@ def _k5_cases(torch, peaks, gen, flush, L, bs, KV, hd) -> dict:
     t6 = time_ms(torch, lambda: kv_scatter(a, host_ids, staging), flush=flush)
     t6p = time_ms(torch, lambda: kv_scatter_ref(b, ids, staging), flush=flush)
     t6l = time_ms(torch, lambda: b.index_copy_(0, idl, staging), flush=flush)
+    t6d = device_only_ms(torch, lambda: kv_scatter(a, host_ids, staging), "kv_transfer_kernel",
+                         flush=flush)
     emit("kernels", kernel="kv_scatter", blocks=47, block_bytes=blk_bytes, bit_exact=exact,
-         untouched_kept=kept, max_abs_err=k5b_err, ms=t6, plain_ms=t6p, library_ms=t6l,
+         untouched_kept=kept, max_abs_err=k5b_err, ms=t6, device_only_ms=t6d, plain_ms=t6p,
+         library_ms=t6l,
          bound_ms=b6, bound_by=b6_by, achieved_gbps=nbytes / t6 / 1e6,
-         note="ms includes the upload of the host ids")
+         note="ms includes the upload of the host ids; device_only_ms is K1's kernel alone")
     rows["kv_scatter"] = dict(shape=f"47 blocks x {blk_bytes} B bf16", max_abs_err=k5b_err,
                               ms=t6, plain_ms=t6p, library_ms=t6l, bound_ms=b6,
                               bound_by=b6_by)
@@ -777,7 +840,9 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
     by_kernel = _device_by_kernel(prof)
     total = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
+    k3_us = sum(v for k, v in by_kernel.items() if "paged_decode" in k)   # every K3 kernel
     out.update(step_device_ms=total / 3e3, step_profiled_wall_ms=wall / 3 * 1e3,
+               k3_ms=k3_us / 3e3, k3_share=k3_us / total if total else None,
                step_device_busy_share=(total / 1e6) / wall if wall else None,
                step_top_kernels_ms=[(k[:80], v / 3e3) for k, v in top])
 

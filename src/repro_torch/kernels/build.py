@@ -38,12 +38,13 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "kv_transfer_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _VP],
     "kv_gather_blocks_launch": [_VP, _VP, _VP, _LL, _LL, _VP],
-    "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    "paged_decode_attention_smem_bytes": [_I, _I, _I, _I],
+    "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "paged_decode_attention_workspace_floats": [_I, _I, _I, _I, _I, _I],
     "flash_prefill_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "flash_prefill_scale_check": [_VP, _VP, _LL, _I, _VP],
 }
+_RESTYPES = {"paged_decode_attention_workspace_floats": _LL}     # the rest return int
 
 
 def sources() -> List[pathlib.Path]:
@@ -109,7 +110,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(cdll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _LIB = cdll
     return _LIB
 

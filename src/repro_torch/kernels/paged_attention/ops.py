@@ -6,6 +6,13 @@ a layer index. On CPU tensors it runs the plain version
 on GPU tensors it launches the CUDA kernel (``csrc/paged_attention.cu``),
 which reads the layer through the pool's strides — there is no fallback
 between the two. ``paged_decode_attention.launches`` counts kernel launches.
+
+The kernel splits each row's pages into runs of ``PAGES_PER_SPLIT`` pages
+counted from page 0, one block per (row, kv-head, split), sized from the
+table width; the last block of a (row, kv-head) combines the partials. Its
+partials live in a workspace from torch's caching allocator, and its
+tickets in a zeroed int32 counter per (device, stream) that the kernel
+leaves zero again: one launch, no host sync.
 """
 from __future__ import annotations
 
@@ -16,6 +23,21 @@ from repro_torch.kernels.paged_attention.ref import paged_decode_attention_stats
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 16
 _MAX_HEAD_DIM = 256
+# Pages a split of the CUDA kernel covers (4 pages = 128 tokens at block 32;
+# PERF.md has the times of 2 and 8, from tools/k3_ablate.py). A constant: a
+# row's result is bit-identical across batches only for one split length.
+PAGES_PER_SPLIT = 4
+_COUNTERS: dict = {}             # (device index, stream) -> zeroed int32 tickets
+
+
+def _counters(dev: torch.device, stream, n: int) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
+                        device=dev)
+        _COUNTERS[key] = c
+    return c
 
 
 def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
@@ -58,21 +80,27 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
             raise ValueError(f"{name} on {t.device}, pool on {dev}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
-    if not pool.is_contiguous():
-        raise ValueError("the pool must be contiguous (the kernel computes page "
-                         "addresses from its layout)")
+    if not pool.is_contiguous() or pool.data_ptr() % 16:
+        raise ValueError("the pool must be contiguous and 16-byte aligned (the kernel "
+                         "computes page addresses from its layout)")
     q = q.contiguous()
     block_tables = block_tables.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
     m = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
     l = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
+    w = block_tables.shape[1]
+    lib = build.library()
     with torch.cuda.device(dev):
-        err = build.library().paged_decode_attention_launch(
+        stream = torch.cuda.current_stream(dev)
+        part = torch.empty(lib.paged_decode_attention_workspace_floats(
+            b, h, kv, hd, w, PAGES_PER_SPLIT), dtype=torch.float32, device=dev)
+        tickets = _counters(dev, stream, b * kv)
+        err = lib.paged_decode_attention_launch(
             q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, h, kv, hd, block_size, L, layer, block_tables.shape[1],
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            part.data_ptr(), tickets.data_ptr(), b, h, kv, hd, block_size, L, layer, w,
+            PAGES_PER_SPLIT, _DTYPE_CODE[q.dtype], stream.cuda_stream)
     build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return (out, m, l) if return_stats else out

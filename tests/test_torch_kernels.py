@@ -222,22 +222,100 @@ def test_cuda_kv_transfer_bit_exact(dtype, payload):
     assert torch.equal(a, b)
 
 
+# (hd, KV, H): qwen3-1.7b, stablelm-12b (hd 160), gemma-2b (hd 256, G 8), the
+# smoke configs (hd 16), and G = 16
+K3_HEADS = [(128, 8, 16), (160, 8, 32), (256, 1, 8), (16, 2, 4), (128, 2, 32)]
+# lengths on and around the split boundaries (4 pages of 32 = 128 tokens),
+# a length-0 row and the whole table (12 pages); the last two rows are pad
+# lanes that copy row 0
+K3_LENGTHS = [200, 0, 1, 127, 128, 129, 255, 256, 257, 33, 384, 200, 200]
+
+
+def _k3_case(dtype, hd, KV, H, lengths, width, seed=1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bs, L, nb = 32, 4, 160
+    pool = torch.randn((nb, L, 2, bs * KV * hd), generator=g, device="cuda").to(TORCH[dtype])
+    q = torch.randn((len(lengths), H, hd), generator=g, device="cuda").to(TORCH[dtype])
+    bt = torch.randint(0, nb, (len(lengths), width), generator=g, device="cuda",
+                       dtype=torch.int32)
+    for i, n in enumerate(lengths):                # zero-pad past each row's pages
+        bt[i, -(-n // bs):] = 0
+    q[-2:], bt[-2:] = q[0], bt[0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return pool, q, bt, lens, bs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (256, 1, 8), (16, 2, 4)])
+@pytest.mark.parametrize("hd,KV,H", K3_HEADS)
 def test_cuda_paged_attention_matches_plain(dtype, hd, KV, H):
     _require_sm90()
     from repro_torch.kernels.paged_attention import paged_decode_attention_stats_ref
-    g = torch.Generator(device="cuda").manual_seed(1)
-    bs, L, nb = 32, 4, 40
-    pool = torch.randn((nb, L, 2, bs * KV * hd), generator=g, device="cuda").to(TORCH[dtype])
-    q = torch.randn((4, H, hd), generator=g, device="cuda").to(TORCH[dtype])
-    bt = torch.randint(0, nb, (4, 8), generator=g, device="cuda", dtype=torch.int32)
-    lens = torch.tensor([200, 0, 33, 256], dtype=torch.int32, device="cuda")
+    pool, q, bt, lens, bs = _k3_case(dtype, hd, KV, H, K3_LENGTHS, 16)
+    before = paged_decode_attention.launches
     o, m, l = paged_decode_attention(q, pool, 2, bt, lens, block_size=bs, return_stats=True)
+    assert paged_decode_attention.launches == before + 1
     ro, rm, rl = paged_decode_attention_stats_ref(q.float(), pool[:, 2].float(), bt, lens, bs)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 2.0 ** -7
     assert float((o.float() - ro).abs().max()) <= tol
     assert float((m - rm).abs().max()) <= 1e-4
     assert float(((l - rl).abs() / rl.clamp(min=1e-30)).max()) <= 1e-4
+    assert (o[1] == 0).all() and (l[1] == 0).all()             # the length-0 row
+    assert (m[1] == torch.finfo(torch.float32).min).all()
+    for x in (o, m, l):                                         # pad lanes: the same bytes
+        assert torch.equal(x[-1], x[0]) and torch.equal(x[-2], x[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,KV,H", K3_HEADS)
+def test_cuda_paged_attention_row_bit_identical(dtype, hd, KV, H):
+    """A row's out, m and l are the same bytes alone (B=1, a table exactly
+    its pages wide) and inside a batch of 13 with a table 16 pages wide."""
+    _require_sm90()
+    pool, q, bt, lens, bs = _k3_case(dtype, hd, KV, H, K3_LENGTHS, 16)
+    full = paged_decode_attention(q, pool, 1, bt, lens, block_size=bs, return_stats=True)
+    for r in (0, 1, 4, 5, 8, 10):
+        n_pages = max(1, -(-K3_LENGTHS[r] // bs))
+        one = paged_decode_attention(q[r:r + 1], pool, 1, bt[r:r + 1, :n_pages].contiguous(),
+                                     lens[r:r + 1], block_size=bs, return_stats=True)
+        for a, b in zip(full, one):
+            assert torch.equal(a[r:r + 1], b), r
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_reads_no_table_entry_past_the_row():
+    """Table entries past a row's pages hold ids far outside the pool: the
+    kernel must not read them (a read would fault) and gives the same bytes
+    as with zero padding."""
+    _require_sm90()
+    pool, q, bt, lens, bs = _k3_case("bfloat16", 128, 8, 16, K3_LENGTHS, 16)
+    far = bt.clone()
+    for i, n in enumerate(K3_LENGTHS):
+        far[i, -(-n // bs):] = 1 << 30
+    a = paged_decode_attention(q, pool, 3, bt, lens, block_size=bs, return_stats=True)
+    b = paged_decode_attention(q, pool, 3, far, lens, block_size=bs, return_stats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_repeated_calls_on_one_stream():
+    """Ten calls in turn on two different inputs of one shape: each result
+    equals the first call on the same input, so the per-(row, kv-head)
+    tickets are zero again after every call; one launch counted per call."""
+    _require_sm90()
+    a_in = _k3_case("float32", 128, 8, 16, K3_LENGTHS, 16, seed=2)
+    b_in = _k3_case("float32", 128, 8, 16, K3_LENGTHS[::-1], 16, seed=3)
+
+    def run(inp):
+        pool, q, bt, lens, bs = inp
+        return paged_decode_attention(q, pool, 0, bt, lens, block_size=bs, return_stats=True)
+
+    want = [run(a_in), run(b_in)]
+    before = paged_decode_attention.launches
+    for i in range(10):
+        got = run((a_in, b_in)[i % 2])
+        assert all(torch.equal(x, y) for x, y in zip(got, want[i % 2])), i
+    assert paged_decode_attention.launches == before + 10
