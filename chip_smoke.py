@@ -21,7 +21,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  to the same row alone at B=1;
                  K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
                  and at gemma-2b's head shape, in both dtypes (bf16 on the
-                 tensor cores), plus its suffix rows bit-identical to its
+                 tensor cores; fp32 with its launch plan and its share of
+                 the FMA bound), plus its suffix rows bit-identical to its
                  cold rows in fp32 and in bf16; K5a (33-block gather, its
                  own block copy) and K5b (47-block scatter), bit-exact, K5b
                  also timed device-only; kernel, plain, bound and library
@@ -39,8 +40,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  wall times, K3's device time and share of the step; the
                  device-time split (GEMMs, K4, K5b, rest) of
                  one cold prefill of the 1500-token prompt with its pool
-                 write. This run is the main path whose K1 and K3 launch
-                 counts go into the ``kernels`` line.
+                 write. This run is the main path whose K1, K3 and bf16 K4
+                 launch counts go into the ``kernels`` line.
 6. ``e2e_prefix`` — the prefill data plane on full-width, full-depth
                  qwen3-1.7b in float32: a 1056-token shared prefix, a donor
                  and three followers served on 1P+1D with prefix reuse and
@@ -48,7 +49,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  monolithic greedy_generate — identical tokens, exact reuse
                  accounting, one dispatch per prefix fetch and per window
                  sub-plan, no leaks; K4 (cold and suffix), K5a and K5b
-                 launched (their counts go into the ``kernels`` line). TTFT
+                 launched (their counts, fp32 K4's among them, go into the
+                 ``kernels`` line). TTFT
                  split and the prefill's device time by kernel are printed.
 
 The weights are random, made from a seed. The last lines are the kernels
@@ -437,10 +439,11 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
     KV 1, H 8) cold at 1024, in float32 and bfloat16; and the suffix rows
     of the fp32 kernel bit-identical to the same rows of its cold call."""
     from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ops import launch_plan
 
     cases = [("cold", 1500, 0, 16, 8, 128), ("suffix", 400, 1056, 16, 8, 128),
              ("cold gemma-2b heads", 1024, 0, 8, 1, 256)]
-    main = None
+    mains = {}
     for dtype in (torch.float32, torch.bfloat16):
         for tag, s, off, H, KV, hd in cases:
             t = s + off
@@ -468,14 +471,20 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
             t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, q_offset=off),
                           reps=5, flush=flush)
             t4l = time_ms(torch, _sdpa(torch, q, k, v, off), flush=flush)
+            plan = None
+            if dtype == torch.float32:      # the fp32 kernel's grid for this call
+                plan = launch_plan(1, s, t, H, KV, hd, True,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
             emit("kernels", kernel="flash_prefill", case=tag, dtype=str(dtype), S=s, T=t,
                  q_offset=off, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
                  ms=t4, plain_ms=t4p, library_ms=t4l, bound_ms=b4, bound_by=b4_by,
-                 flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9)
-            if dtype == torch.bfloat16 and tag == "cold":
-                main = dict(shape=f"cold S=T={s} bf16, H {H} KV {KV} hd {hd}",
-                            max_abs_err=err, ms=t4, plain_ms=t4p, library_ms=t4l,
-                            bound_ms=b4, bound_by=b4_by)
+                 flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9,
+                 bound_share=b4 / t4, plan=plan)
+            if tag == "cold":
+                name = "flash_prefill" if dtype == torch.bfloat16 else "flash_prefill_fp32"
+                mains[name] = dict(shape=f"cold S=T={s} {key}, H {H} KV {KV} hd {hd}",
+                                   max_abs_err=err, ms=t4, plain_ms=t4p, library_ms=t4l,
+                                   bound_ms=b4, bound_by=b4_by)
             del q, k, v, out, same
     # row independence: rows 1056.. of the cold call == the suffix call's rows
     for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
@@ -492,7 +501,7 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
         check(all(identical.values()),
               f"K4 {name} suffix rows differ from its cold rows: {identical}")
         del q, k, v, cold
-    return {"flash_prefill": main}
+    return mains
 
 
 def _k5_cases(torch, peaks, gen, flush, L, bs, KV, hd) -> dict:
@@ -1095,7 +1104,10 @@ def main() -> int:
                                    decode_counts),
         "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                           "src/repro/kernels/flash_prefill/flash_prefill.py:113",
-                          prefill_counts),
+                          decode_counts),
+        "flash_prefill_fp32": ("src/repro_torch/csrc/flash_prefill.cu",
+                               "src/repro/kernels/flash_prefill/flash_prefill.py:113",
+                               prefill_counts),
         "kv_gather": ("src/repro_torch/csrc/kv_gather.cu",
                       "src/repro/kernels/kv_gather/kv_gather.py:42", prefill_counts),
         "kv_scatter": ("src/repro_torch/csrc/kv_transfer.cu",
@@ -1106,7 +1118,7 @@ def main() -> int:
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": rep,
-            "launches": counts[name], "max_abs_err": row["max_abs_err"],
+            "launches": counts[name.replace("_fp32", "")], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"]})

@@ -16,6 +16,24 @@ launches K1's kernel).
 """
 from __future__ import annotations
 
+_TICKETS: dict = {}             # (device index, stream) -> zeroed int32 tickets
+
+
+def ticket_counters(dev, stream, n: int):
+    """Zeroed int32 tickets, at least ``n``, for the kernels whose blocks
+    elect the last of a group by an atomic ticket (K3, K4 fp32): one buffer
+    per (device, stream). Each kernel leaves the tickets it used at zero
+    again, so the calls that share a buffer are ordered on its stream."""
+    import torch
+
+    key = (dev.index, stream.cuda_stream)
+    c = _TICKETS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
+                        device=dev)
+        _TICKETS[key] = c
+    return c
+
 
 def _wrappers() -> dict:
     from repro_torch.kernels.flash_prefill.ops import flash_prefill_op

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
     "paged_decode_attention_workspace_floats": [_I, _I, _I, _I, _I, _I],
-    "flash_prefill_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    "flash_prefill_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _VP, _VP, _VP],
     "flash_prefill_scale_check": [_VP, _VP, _LL, _I, _VP],
 }
 _RESTYPES = {"paged_decode_attention_workspace_floats": _LL}     # the rest return int

@@ -27,17 +27,6 @@ _MAX_HEAD_DIM = 256
 # PERF.md has the times of 2 and 8, from tools/k3_ablate.py). A constant: a
 # row's result is bit-identical across batches only for one split length.
 PAGES_PER_SPLIT = 4
-_COUNTERS: dict = {}             # (device index, stream) -> zeroed int32 tickets
-
-
-def _counters(dev: torch.device, stream, n: int) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream)
-    c = _COUNTERS.get(key)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
-                        device=dev)
-        _COUNTERS[key] = c
-    return c
 
 
 def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
@@ -66,7 +55,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
         return (out, m, l) if return_stats else out
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ticket_counters
 
     g = h // kv
     if q.dtype != pool.dtype or q.dtype not in _DTYPE_CODE:
@@ -95,7 +84,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
         stream = torch.cuda.current_stream(dev)
         part = torch.empty(lib.paged_decode_attention_workspace_floats(
             b, h, kv, hd, w, PAGES_PER_SPLIT), dtype=torch.float32, device=dev)
-        tickets = _counters(dev, stream, b * kv)
+        tickets = ticket_counters(dev, stream, b * kv)
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),

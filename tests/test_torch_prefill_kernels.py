@@ -294,9 +294,82 @@ def test_cuda_flash_prefill_bf16_ragged(hd, G):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 256) for g in (1, 2, 8, 16)]
+                         + [(64, 3), (256, 64)])
+def test_cuda_flash_prefill_fp32_ragged(hd, G):
+    """The fp32 FMA kernel at every head dim and group size (G = 3 leaves
+    pairs of a block unused; G = 64 at hd 256 takes 8-warp blocks), cold
+    over 1100 keys (three key splits, ragged tiles), non-causal, and in
+    suffix mode at offsets on, beside and between the split boundaries:
+    within 2e-5 of the plain version, suffix rows bit-identical to the
+    cold rows."""
+    _require_sm90()
+    g = torch.Generator(device="cuda").manual_seed(hd + G)
+    b, t, KV = 2, 1100, 2 if G <= 8 else 1
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    q_full, k, v = mk(b, t, G * KV, hd), mk(b, t, KV, hd), mk(b, t, KV, hd)
+    cold = flash_prefill_op(q_full, k, v)
+    for off in (0, 45, 511, 512, 513, 1023, 1099):
+        q = q_full[:, off:]
+        out = cold if off == 0 else flash_prefill_op(q, k, v, q_offset=off)
+        want = flash_prefill_ref(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        assert float((out - want).abs().max()) <= TOL["float32"], off
+        assert torch.equal(out, cold[:, off:]), off
+    nc = flash_prefill_op(q_full, k, v, causal=False)
+    want = flash_prefill_ref(q_full, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert float((nc - want).abs().max()) <= TOL["float32"]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_prefill_fp32_rows_bit_identical_across_plans():
+    """qwen3-1.7b's heads over 1456 keys: the cold call takes 4-warp blocks,
+    the suffix calls of 400 (the chip shape), 200, 96, 8 and 1 rows other
+    query tiles and grids (asserted); every suffix row equals the cold row
+    bit for bit."""
+    _require_sm90()
+    from repro_torch.kernels.flash_prefill.ops import launch_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(6)
+    t = 1456
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    q, k, v = mk(1, t, 16, 128), mk(1, t, 8, 128), mk(1, t, 8, 128)
+    cold = flash_prefill_op(q, k, v)
+    plans = {launch_plan(1, t, t, 16, 8, 128, True, sms)["warps"]}
+    for s in (400, 200, 96, 8, 1):
+        plans.add(launch_plan(1, s, t, 16, 8, 128, True, sms)["warps"])
+        suf = flash_prefill_op(q[:, t - s:], k, v, q_offset=t - s)
+        torch.cuda.synchronize()
+        assert torch.equal(suf, cold[:, t - s:]), s
+    assert len(plans) >= 2, plans
+
+
+@pytest.mark.gpu
+def test_cuda_flash_prefill_fp32_repeated_calls():
+    """Ten calls on one stream, two multi-split inputs in turn (cold 1500
+    and a suffix of 400 over 1456): each result equals that input's first,
+    so every ticket is back at zero after each call."""
+    _require_sm90()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    cases = [(mk(1, 1500, 16, 128), mk(1, 1500, 8, 128), mk(1, 1500, 8, 128), 0),
+             (mk(1, 400, 16, 128), mk(1, 1456, 8, 128), mk(1, 1456, 8, 128), 1056)]
+    first = [flash_prefill_op(q, k, v, q_offset=off) for q, k, v, off in cases]
+    for i in range(10):
+        q, k, v, off = cases[i % 2]
+        got = flash_prefill_op(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, first[i % 2]), i
+    q, k, v, off = cases[1]
+    assert float((first[1] - flash_prefill_ref(q, k, v, q_offset=off)).abs().max()) <= 2e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_flash_prefill_scale_is_a_division(hd):
-    """The bf16 kernel scales scores by a reciprocal and one FMA correction;
+    """Both kernels scale scores by a reciprocal and one FMA correction;
     it must equal a rounded division by the fp32 sqrt(hd) on every fp32
     score that is finite and at least 2^-100 in magnitude, and on zero."""
     _require_sm90()

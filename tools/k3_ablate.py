@@ -102,6 +102,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.configs import get_config
+    from repro_torch import kernels
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import (ops, paged_decode_attention,
                                                      paged_decode_attention_stats_ref)
@@ -159,13 +160,13 @@ def main() -> int:
             for rnd in range(2):
                 for name, lib in libs.items():
                     build._LIB = lib
-                    ops._COUNTERS.clear()      # a probe may leave its tickets set
+                    kernels._TICKETS.clear()   # a probe may leave its tickets set
                     if rnd == 0 and name in CHECKED:
                         err = float((call()[0].float() - want).abs().max())
                         cs.check(err <= tol, f"k3_ablate: variant {name} off by {err}")
                     row.setdefault(name, []).append(
                         cs.device_only_ms(torch, call, "paged_decode", flush=flush))
-            ops._COUNTERS.clear()
+            kernels._TICKETS.clear()
             build._LIB = shipped
             print(json.dumps(row), flush=True)
         del pool
