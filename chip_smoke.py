@@ -52,6 +52,24 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  launched (their counts, fp32 K4's among them, go into the
                  ``kernels`` line). TTFT
                  split and the prefill's device time by kernel are printed.
+7. ``e2e_faults_tier`` — the fault plane, the serving checkpoint and the
+                 host-DRAM tier on full-width, full-depth qwen3-1.7b in
+                 float32, 1 prefill + 2 decode nodes: a corrupted P->D
+                 transfer caught by the device verify and repaired by the
+                 retry, a transfer failing every attempt degraded to
+                 recompute, a decode node killed mid-decode (each token
+                 streamed exactly once), all token-identical to monolithic
+                 greedy_generate; save_cluster mid-stream, load_cluster into
+                 a fresh cluster, finish with the same tokens; a 1056-token
+                 prefix demoted to a pinned host tier by unrelated prompts
+                 and promoted for a follower in one K1 launch, tokens equal
+                 to the run without a tier and to monolithic, exact reuse
+                 accounting, both tiers' invariants. Prints one 1500-token
+                 transfer's K1 time, device verify wall and host blake2b
+                 wall, and K1's demote/promote times over pinned memory
+                 against the host link's bound (nvidia-smi) and the PyTorch
+                 calls that make the same move; its host-route launch count
+                 goes into the ``kernels`` line as ``kv_transfer_host``.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -801,10 +819,10 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
 
     Step: median wall over 10 synchronized steps (the append rewrites the
     same slots, so the state does not change) and a torch.profiler device
-    time split by kernel over 3 steps. Transfer: the K1 launch (CUDA events)
-    and the checksum verification (wall) separately.
+    time split by kernel over 3 steps. Transfer: the K1 launch (CUDA events),
+    the device verify's wall and the host blake2b digests' wall, separately.
     """
-    from repro_torch.core.transfer import TransferEngine, verify_transfer
+    from repro_torch.core.transfer import TransferPlanner
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import _next_pow2
     from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
@@ -859,15 +877,8 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
     rid = max(range(len(prompts)), key=lambda i: lens[i])
     dst = PagedKVCache(spec_for_model(cfg, 256), device=DEVICE)
     dst_blocks = dst.bm.allocate(0, lens[rid] + 1)
-    engine = TransferEngine(kv.spec, dst.spec)
-    plan = engine.planner.plan("flowkv", kv.bm.get(rid)[:len(dst_blocks)], dst_blocks)
-    t_exec = time_ms(torch, lambda: engine.execute(plan, kv.pool, dst.pool), reps=10)
-    t0 = time.perf_counter()
-    ok = verify_transfer(plan, kv.spec, kv.pool, dst.spec, dst.pool)
-    t_verify = time.perf_counter() - t0
-    check(ok, "transfer verification failed")
-    out.update(transfer_tokens=lens[rid], transfer_bytes=plan.total_bytes,
-               transfer_kernel_ms=t_exec, transfer_verify_wall_ms=t_verify * 1e3)
+    plan = TransferPlanner(kv.spec).plan("flowkv", kv.bm.get(rid)[:len(dst_blocks)], dst_blocks)
+    out.update(transfer_tokens=lens[rid], **_transfer_split(torch, kv, dst, plan))
     return out
 
 
@@ -1073,6 +1084,405 @@ def phase_e2e_prefix(torch, env) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# e2e_faults_tier: the fault plane, the serving checkpoint and the host tier
+# ---------------------------------------------------------------------------
+FT_PROMPT_LENS = [300, 1500]
+FT_NEW_TOKENS = 8
+FT_BLOCKS = 128                        # pool blocks a node in the fault runs
+CKPT_BLOCKS = 64                       # ~470 MB a node of fp32 in pools.npz
+KILL_AFTER = 3                         # decode steps of the victim before its node dies
+TIER_BLOCKS = 48                       # pool blocks a node in the tier runs
+TIER_HOST_BLOCKS = 128                 # host-tier blocks a node (pinned; holds the prefix and the churn)
+TIER_CHURN = [1400, 1400]              # unrelated prompts whose pressure demotes the prefix
+TIER_FOLLOWER_TAIL = 200
+# bytes a lane moves per second and direction, by PCIe generation (encoding
+# 8b/10b through gen 2, 128b/130b after)
+PCIE_LANE_BPS = {1: 0.25e9, 2: 0.5e9, 3: 0.985e9, 4: 1.969e9, 5: 3.938e9}
+
+
+def _fault_run(torch, cfg, params, prompts, mono, tag, faults=None):
+    """Serve ``prompts`` on 1P+2D under ``faults`` through a FlowKVClient,
+    reading every stream round-robin: every request finishes with the
+    monolithic tokens, each streamed exactly once, and nothing leaks.
+    Returns (handles, summary)."""
+    from repro_torch.faults import FaultInjector
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+
+    client = FlowKVClient(cfg, params, num_prefill=1, num_decode=2, num_blocks=FT_BLOCKS,
+                          max_batch_tokens=4096, device=DEVICE, heartbeat_timeout_cycles=2.0,
+                          faults=None if faults is None else FaultInjector(faults, seed=SEED))
+    sync(torch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [client.submit(list(p), SamplingParams(max_new_tokens=FT_NEW_TOKENS))
+               for p in prompts]
+    streams = {h.request_id: [] for h in handles}
+    gens = {h.request_id: h.tokens(max_cycles=400) for h in handles}
+    done = set()
+    while len(done) < len(handles):
+        for h in handles:
+            if h.request_id not in done:
+                tok = next(gens[h.request_id], None)
+                if tok is None:
+                    done.add(h.request_id)
+                else:
+                    streams[h.request_id].append(int(tok))
+    sync(torch)
+    wall = time.perf_counter() - t0
+    cluster = client.cluster
+    outs = [list(map(int, h.request.output_tokens)) for h in handles]
+    check(outs == mono, f"{tag}: tokens differ from monolithic")
+    check(all(streams[h.request_id] == o for h, o in zip(handles, outs)),
+          f"{tag}: a stream saw a token twice or missed one")
+    check(cluster.audit_blocks() == 0, f"{tag}: leaked blocks")
+    cluster.assert_no_leaks()
+    s = cluster.stats()
+    summary = {k: s[k] for k in ("fault_kills", "transfer_retries", "degraded_to_recompute",
+                                 "recoveries", "decode_steps")}
+    summary.update(wall_s=wall, launches=launch_counts(),
+                   transfers=[(t.status, t.retries, t.num_dispatches) for t in cluster.transfers],
+                   decode_nodes=[h.request.decode_node for h in handles],
+                   cycles=[(h.request.prefill_end, h.request.finish_time) for h in handles])
+    return handles, summary
+
+
+def _transfer_split(torch, src_kv, dst_kv, plan) -> dict:
+    """One P->D transfer: the K1 launch (CUDA events), the device verify's
+    wall, and the host blake2b digests of the same pages (the verify the
+    port ran before) in the same run."""
+    from repro_torch.core.transfer import TransferEngine, payload_digest, verify_transfer
+
+    engine = TransferEngine(src_kv.spec, dst_kv.spec)
+    t_exec = time_ms(torch, lambda: engine.execute(plan, src_kv.pool, dst_kv.pool), reps=10)
+    walls, ok = [], True
+    for _ in range(5):
+        sync(torch)
+        t0 = time.perf_counter()
+        ok = ok and verify_transfer(plan, src_kv.spec, src_kv.pool, dst_kv.spec, dst_kv.pool)
+        sync(torch)
+        walls.append(time.perf_counter() - t0)
+    check(ok, "the device verify rejected a clean transfer")
+    table = plan.to_descriptors()
+    t0 = time.perf_counter()
+    same = payload_digest(src_kv.pool, src_kv.spec, table.page_ids(src_kv.spec, "src")) == \
+        payload_digest(dst_kv.pool, dst_kv.spec, table.page_ids(dst_kv.spec, "dst"))
+    blake = time.perf_counter() - t0
+    check(same, "the host digests of a clean transfer differ")
+    # one flipped bit: the device verify must say no, as the digests do
+    pid = int(table.page_ids(dst_kv.spec, "dst")[0])
+    bits = dst_kv.pool.view(-1, dst_kv.spec.payload).view(
+        torch.int16 if dst_kv.pool.element_size() == 2 else torch.int32)
+    bits[pid, 0] ^= 1
+    caught = not verify_transfer(plan, src_kv.spec, src_kv.pool, dst_kv.spec, dst_kv.pool)
+    bits[pid, 0] ^= 1
+    check(caught, "the device verify missed a corrupted element")
+    return dict(transfer_bytes=plan.total_bytes, transfer_kernel_ms=t_exec,
+                transfer_verify_wall_ms=statistics.median(walls) * 1e3,
+                transfer_verify_first_wall_ms=walls[0] * 1e3,
+                host_blake2b_wall_ms=blake * 1e3)
+
+
+def _pcie_link(torch, busy) -> dict:
+    """The host link as nvidia-smi reads it while ``busy`` keeps it moving
+    (an idle link may report a lower generation)."""
+    for _ in range(20):
+        busy()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+                          "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    sync(torch)
+    vals = [v.strip() for v in smi.stdout.strip().splitlines()[0].split(",")] \
+        if smi.returncode == 0 and smi.stdout.strip() else []
+    try:
+        gen, width = int(vals[0]), int(vals[1])
+        source = "current under load"
+    except (IndexError, ValueError):
+        gen, width, source = 5, 16, "not readable; H100 SXM's gen 5 x16 assumed"
+    return dict(pcie_gen=gen, pcie_width=width, pcie_read=vals, pcie_source=source,
+                link_bps=PCIE_LANE_BPS.get(gen, PCIE_LANE_BPS[5]) * width)
+
+
+def _host_route_timing(torch, cfg, peaks) -> dict:
+    """K1 between a card pool and a pinned host pool on the tier's plan
+    shape (the 33 blocks of the shared prefix, fp32): demote and promote
+    against the plain version (bit-exact) and their bound over the host
+    link, beside the PyTorch calls that make the same move."""
+    from repro_torch.core.transfer import TransferPlanner
+    from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref
+    from repro_torch.serving.kv_cache import spec_for_model
+
+    spec = spec_for_model(cfg, 64)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 7)
+    pool = torch.randn(spec.shape, generator=gen, device=DEVICE)
+    host = torch.empty(spec.shape, dtype=spec.dtype, pin_memory=True)
+    host.copy_(torch.randn(spec.shape, generator=gen, device=DEVICE).cpu())
+    n = PREFIX_LEN // spec.block_size
+    blocks, hb = list(range(5, 5 + n)), list(range(20, 20 + n))
+    planner = TransferPlanner(spec)
+    down = planner.plan("flowkv", blocks, hb).to_descriptors()
+    up = planner.plan("flowkv", hb, blocks).to_descriptors()
+
+    def pages(table, side):
+        return torch.as_tensor(table.page_ids(spec, side), dtype=torch.int32).to(DEVICE)
+
+    dsp, ddp, usp, udp = pages(down, "src"), pages(down, "dst"), pages(up, "src"), pages(up, "dst")
+    nbytes = int(dsp.numel()) * spec.payload * 4
+    ids = torch.as_tensor(blocks, device=DEVICE)
+    out = {"blocks": n, "pages": int(dsp.numel()), "bytes": nbytes}
+    # bit-exact against the plain version, both directions
+    want_h = host.clone()
+    kv_transfer_ref(pool, want_h, dsp, ddp)
+    kv_transfer(pool, host, dsp, ddp)
+    sync(torch)
+    d_err = float((host - want_h).abs().max())
+    check(torch.equal(host.view(torch.int32), want_h.view(torch.int32)),
+          f"K1 demote to pinned memory not bit-exact (max |delta| {d_err})")
+    pool2 = torch.randn(spec.shape, generator=gen, device=DEVICE)
+    want_d = pool2.clone()
+    kv_transfer_ref(host, want_d, usp, udp)
+    kv_transfer(host, pool2, usp, udp)
+    sync(torch)
+    u_err = float((pool2 - want_d).abs().max())
+    check(torch.equal(pool2.view(torch.int32), want_d.view(torch.int32)),
+          f"K1 promote from pinned memory not bit-exact (max |delta| {u_err})")
+    link = _pcie_link(torch, lambda: kv_transfer(host, pool2, usp, udp))
+    b_ms = max(nbytes / link["link_bps"], 2 * nbytes / peaks["hbm"]) * 1e3
+    hview = host[20:20 + n]                  # the host blocks are one contiguous run
+    for name, k_fn, p_fn, l_fn in (
+            ("demote", lambda: kv_transfer(pool, host, dsp, ddp),
+             lambda: kv_transfer_ref(pool, host, dsp, ddp),
+             lambda: hview.copy_(pool.index_select(0, ids), non_blocking=True)),
+            ("promote", lambda: kv_transfer(host, pool2, usp, udp),
+             lambda: kv_transfer_ref(host, pool2, usp, udp),
+             lambda: pool2.index_copy_(0, ids, hview.to(DEVICE, non_blocking=True)))):
+        out[name] = dict(ms=time_ms(torch, k_fn, reps=10), plain_ms=time_ms(torch, p_fn, reps=5),
+                         library_ms=time_ms(torch, l_fn, reps=10), bound_ms=b_ms,
+                         max_abs_err=d_err if name == "demote" else u_err)
+        out[name]["link_share"] = b_ms / out[name]["ms"]
+        out[name]["achieved_gbps"] = nbytes / out[name]["ms"] / 1e6
+    out.update(link)
+    del pool, pool2, host, want_h, want_d
+    return out
+
+
+def _tier_run(torch, cfg, params, prompts, host_blocks, hw):
+    """The donor, then each unrelated prompt, then the follower, one after
+    another, each served to the end on 1P+2D (two prompts of the churn at
+    once could both be routed to one decode node, which cannot hold them);
+    returns (cluster, requests, counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.cluster import PDCluster
+    from repro_torch.serving.request import Request, SamplingParams
+
+    cluster = PDCluster(cfg, params, num_prefill=1, num_decode=2, num_blocks=TIER_BLOCKS,
+                        max_batch_tokens=4096, host_tier_blocks=host_blocks, hardware=hw,
+                        device=DEVICE)
+    reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(max_new_tokens=FT_NEW_TOKENS))
+            for p in prompts]
+    sync(torch)
+    reset_launch_counts()
+    for r in reqs:
+        cluster.submit(r)
+        for _ in range(200):
+            if r.request_id in {f.request_id for f in cluster.finished}:
+                break
+            cluster.step()
+        check(r.request_id in {f.request_id for f in cluster.finished},
+              "e2e_faults_tier: tier run stalled")
+    sync(torch)
+    return cluster, reqs, launch_counts()
+
+
+def phase_e2e_faults_tier(torch, env) -> dict:
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.transfer import TransferPlanner
+    from repro_torch.faults import FaultSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.checkpoint import load_cluster, save_cluster
+    from repro_torch.serving.cluster import PDCluster
+    from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
+    from repro_torch.serving.request import Request, SamplingParams
+    from repro_torch.sim.hardware import H100
+
+    tag = "e2e_faults_tier"
+    cfg = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    params = get_model(cfg).init(SEED, DEVICE)
+    rng = np.random.RandomState(SEED + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in FT_PROMPT_LENS]
+
+    def greedy(ps):
+        return [[int(x) for x in T.greedy_generate(
+            params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE),
+            FT_NEW_TOKENS)[0].cpu()] for p in ps]
+
+    mono = greedy(prompts)
+    data = {"model": cfg.name, "dtype": str(cfg.dtype), "layers": cfg.num_layers,
+            "nodes": "1P+2D", "prompt_lens": FT_PROMPT_LENS, "new_tokens": FT_NEW_TOKENS}
+
+    # -- faults: none, a corrupt transfer, every attempt failing, a decode kill
+    bh, data["unfaulted"] = _fault_run(torch, cfg, params, prompts, mono, tag + " unfaulted")
+    check(data["unfaulted"]["transfer_retries"] == 0, f"{tag}: retries without faults")
+    victim = max(bh, key=lambda h: h.request.prompt_len).request
+    kill_at = victim.prefill_end + 1 + KILL_AFTER
+    check(kill_at < victim.finish_time, f"{tag}: the victim finishes before the kill")
+    del bh
+    _, data["corrupt"] = _fault_run(torch, cfg, params, prompts, mono, tag + " corrupt",
+                                       [FaultSpec("transfer_corrupt", at=0.0, count=1)])
+    c = data["corrupt"]
+    check(c["transfer_retries"] == 1 and c["degraded_to_recompute"] == 0 and
+          c["transfers"][0][:2] == ("ok", 1),
+          f"{tag}: the corrupted transfer was not caught and repaired: {c['transfers']}")
+    attempts = 4                       # PDCluster's transfer_max_retries (3) + 1
+    _, data["fail"] = _fault_run(torch, cfg, params, prompts, mono, tag + " fail",
+                                    [FaultSpec("transfer_fail", at=0.0, count=attempts)])
+    f = data["fail"]
+    check(f["degraded_to_recompute"] == 1 and f["transfer_retries"] == attempts,
+          f"{tag}: every attempt failing did not degrade to recompute: {f['transfers']}")
+    kh, data["kill"] = _fault_run(
+        torch, cfg, params, prompts, mono, tag + " kill",
+        [FaultSpec("node_crash", at=kill_at, node_id=victim.decode_node)])
+    k = data["kill"]
+    check(k["fault_kills"] == 1 and k["recoveries"] >= 1,
+          f"{tag}: the decode kill recovered nothing: {k}")
+    data["kill"].update(killed_node=victim.decode_node, kill_at=kill_at,
+                        replayed_tokens=[h.stats()["replayed_tokens"] for h in kh])
+    del kh
+    gc.collect()
+
+    # -- the transfer split of one 1500-token P->D transfer (fp32)
+    src_kv = PagedKVCache(spec_for_model(cfg, FT_BLOCKS), device=DEVICE)
+    dst_kv = PagedKVCache(spec_for_model(cfg, FT_BLOCKS), device=DEVICE)
+    src_kv.pool.normal_(generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    n_tok = max(FT_PROMPT_LENS)
+    src_blocks = src_kv.bm.allocate(0, n_tok + 1)
+    dst_blocks = dst_kv.bm.allocate(0, n_tok + 1)
+    plan = TransferPlanner(src_kv.spec).plan("flowkv", src_blocks, dst_blocks)
+    data["transfer_split"] = dict(tokens=n_tok, **_transfer_split(torch, src_kv, dst_kv, plan))
+    del src_kv, dst_kv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- checkpoint mid-stream, restore into a fresh cluster, finish
+    def ckpt_cluster():
+        return PDCluster(cfg, params, num_prefill=1, num_decode=2, num_blocks=CKPT_BLOCKS,
+                         max_batch_tokens=4096, device=DEVICE)
+
+    first = ckpt_cluster()
+    reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(max_new_tokens=FT_NEW_TOKENS))
+            for p in prompts]
+    for r in reqs:
+        first.submit(r)
+    for _ in range(40):                  # every request transferred and a few tokens out
+        first.step()
+        if all(r.transfer_end is not None for r in reqs) and \
+                min(len(r.output_tokens) for r in reqs) >= 3:
+            break
+    emitted = [len(r.output_tokens) for r in reqs]
+    check(all(0 < e < FT_NEW_TOKENS for e in emitted),
+          f"{tag}: the checkpoint is not mid-stream: {emitted} tokens out")
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        sync(torch)
+        t0 = time.perf_counter()
+        save_cluster(first, tmp)
+        save_s = time.perf_counter() - t0
+        npz_bytes = (pathlib.Path(tmp) / "pools.npz").stat().st_size
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = ckpt_cluster()
+        t0 = time.perf_counter()
+        load_cluster(second, tmp)
+        sync(torch)
+        load_s = time.perf_counter() - t0
+    for _ in range(100):
+        if len(second.finished) >= len(prompts):
+            break
+        second.step()
+    got = {tuple(r.prompt_tokens): list(map(int, r.output_tokens)) for r in second.finished}
+    check(got == {tuple(p): m for p, m in zip(prompts, mono)},
+          f"{tag}: the restored cluster's tokens differ from monolithic")
+    check(second.audit_blocks() == 0, f"{tag}: leaked blocks after the restore")
+    data["checkpoint"] = dict(emitted_at_save=emitted, save_s=save_s, load_s=load_s,
+                              npz_bytes=npz_bytes, blocks_per_node=CKPT_BLOCKS)
+    del second
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the host tier: a shared prefix demoted by unrelated pressure, promoted
+    prefix = rng.randint(0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    tier_prompts = ([prefix + rng.randint(0, cfg.vocab_size, size=DONOR_TAIL).tolist()]
+                    + [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in TIER_CHURN]
+                    + [prefix + rng.randint(0, cfg.vocab_size,
+                                            size=TIER_FOLLOWER_TAIL).tolist()])
+    hw = dataclasses.replace(H100, peak_flops=1e6)     # fetch, not recompute (e2e_prefix)
+    tiered, treqs, tcounts = _tier_run(torch, cfg, params, tier_prompts, TIER_HOST_BLOCKS, hw)
+    s = tiered.stats()
+    follower = treqs[-1]
+    total = sum(r.prompt_len for r in treqs)
+    tms = {nid: tm.stats() for nid, tm in tiered.tiers.items()}
+    promotes = sum(t["promote_dispatches"] for t in tms.values())
+    demotes = sum(t["demote_dispatches"] for t in tms.values())
+    check(s["tier_demoted_blocks"] >= PREFIX_LEN // cfg.block_size,
+          f"{tag}: the pressure demoted {s['tier_demoted_blocks']} blocks")
+    check(s["tier_promoted_blocks"] >= PREFIX_LEN // cfg.block_size and promotes == 1,
+          f"{tag}: the follower promoted {s['tier_promoted_blocks']} blocks "
+          f"in {promotes} dispatches")
+    check(follower.num_cached_prefix_tokens >= PREFIX_LEN,
+          f"{tag}: the follower reused {follower.num_cached_prefix_tokens} tokens")
+    check(tcounts["kv_transfer_host"] == demotes + promotes > 0,
+          f"{tag}: {tcounts['kv_transfer_host']} host launches for {demotes} demote and "
+          f"{promotes} promote dispatches")
+    check(s["prefill_tokens_computed"] == total - s["prefix_tokens_reused"],
+          f"{tag}: prefill_tokens_computed {s['prefill_tokens_computed']} != "
+          f"{total} - {s['prefix_tokens_reused']}")
+    check(tiered.audit_blocks() == 0, f"{tag}: leaked blocks with the tier")   # + tier invariants
+    tiered.assert_no_leaks()
+    t_outs = [list(map(int, r.output_tokens)) for r in treqs]
+    del tiered
+    gc.collect()
+    plain, preqs, _ = _tier_run(torch, cfg, params, tier_prompts, 0, hw)
+    p_outs = [list(map(int, r.output_tokens)) for r in preqs]
+    check(plain.audit_blocks() == 0, f"{tag}: leaked blocks without the tier")
+    ps = plain.stats()
+    del plain
+    gc.collect()
+    t_mono = greedy(tier_prompts)
+    check(t_outs == p_outs == t_mono,
+          f"{tag}: tier tokens differ (vs no tier {t_outs == p_outs}, vs monolithic "
+          f"{t_outs == t_mono})")
+    data["tier"] = dict(
+        prompt_lens=[len(p) for p in tier_prompts], pool_blocks=TIER_BLOCKS,
+        host_blocks=TIER_HOST_BLOCKS, tiers=tms, launches=tcounts,
+        follower_cached=follower.num_cached_prefix_tokens,
+        prefill_tokens_computed=s["prefill_tokens_computed"],
+        prefix_tokens_reused=s["prefix_tokens_reused"], total_prompt=total,
+        follower_ttft_wall_s=follower.first_token_wall - follower.arrival_wall,
+        without_tier=dict(prefix_tokens_reused=ps["prefix_tokens_reused"],
+                          prefill_tokens_computed=ps["prefill_tokens_computed"],
+                          cached_evicted=ps["cached_evicted"]),
+        tokens_identical=True)
+    torch.cuda.empty_cache()
+    data["host_route"] = _host_route_timing(torch, cfg, env["peaks"])
+    data["card"] = env["smi"]
+    emit(tag, **data)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tcounts, data["host_route"]
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -1095,6 +1505,13 @@ def main() -> int:
     phase_e2e(torch, torch.float32, env)
     decode_counts = phase_e2e(torch, torch.bfloat16, env)
     prefill_counts = phase_e2e_prefix(torch, env)
+    tier_counts, host_route = phase_e2e_faults_tier(torch, env)
+    promote = host_route["promote"]
+    rows["kv_transfer_host"] = dict(
+        promote, bound_by="bytes",
+        shape=f"promote {host_route['blocks']} blocks ({host_route['pages']} pages, "
+              f"{host_route['bytes']} B fp32) pinned host -> card over PCIe gen "
+              f"{host_route['pcie_gen']} x{host_route['pcie_width']}")
     # (source, replaced Pallas call, the path whose launch counts are reported)
     replaces = {
         "kv_transfer": ("src/repro_torch/csrc/kv_transfer.cu",
@@ -1112,6 +1529,8 @@ def main() -> int:
                       "src/repro/kernels/kv_gather/kv_gather.py:42", prefill_counts),
         "kv_scatter": ("src/repro_torch/csrc/kv_transfer.cu",
                        "src/repro/kernels/kv_gather/kv_scatter.py:36", prefill_counts),
+        "kv_transfer_host": ("src/repro_torch/csrc/kv_transfer.cu",
+                             "src/repro/kernels/kv_gather/kv_transfer.py:57", tier_counts),
     }
     kernels = []
     for name, (source, rep, counts) in replaces.items():

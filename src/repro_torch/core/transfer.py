@@ -479,8 +479,11 @@ class TransferEngine:
         table = plan.to_descriptors()
         if len(table) == 0:
             return dst_cache
-        src_pages = _device_pages(table.page_ids(self.src_spec, "src"), dst_cache.device)
-        dst_pages = _device_pages(table.page_ids(self.dst_spec, "dst"), dst_cache.device)
+        # the tables go to the side that launches: dst's device, or src's
+        # when dst is a host pool (a demotion to the host tier)
+        dev = src_cache.device if dst_cache.device.type == "cpu" else dst_cache.device
+        src_pages = _device_pages(table.page_ids(self.src_spec, "src"), dev)
+        dst_pages = _device_pages(table.page_ids(self.dst_spec, "dst"), dev)
         self.num_dispatches += 1
         _TOTAL_DISPATCHES += 1
         return kv_transfer(src_cache, dst_cache, src_pages, dst_pages)
@@ -527,23 +530,34 @@ def payload_digest(pool: torch.Tensor, spec: L.KVCacheSpec,
                            digest_size=16).digest()
 
 
+def _page_ints(pool: torch.Tensor, spec: L.KVCacheSpec,
+               page_ids: np.ndarray) -> torch.Tensor:
+    """The given flat pages of a pool, gathered on the pool's own device and
+    viewed as same-width integers (the bytes ``page_bytes`` reads)."""
+    flat = pool.reshape(-1, spec.payload).view(_INT_VIEW[pool.element_size()])
+    return flat.index_select(0, torch.as_tensor(page_ids, dtype=torch.long).to(pool.device))
+
+
 def verify_transfer(plan: TransferPlan, src_spec: L.KVCacheSpec,
                     src_pool: torch.Tensor, dst_spec: L.KVCacheSpec,
                     dst_pool: torch.Tensor) -> bool:
     """Post-dispatch integrity check: did the dst pages land bit-identical?
 
-    Digests the plan's source pages and destination pages (each through its
-    own layout's page ordering, which pairs row-for-row by construction) and
-    compares. An empty plan trivially verifies.
+    Gathers the plan's source pages and destination pages (each through its
+    own layout's page ordering, which pairs row-for-row by construction) on
+    the pools' device and compares them as integers, so no page is copied
+    to the host. The verdict is the reference's — its blake2b digests of
+    the same bytes are equal exactly when the bytes are — including NaN
+    payloads (equal bits verify) and -0.0 against +0.0 (they do not). An
+    empty plan trivially verifies.
     """
     table = plan.to_descriptors()
     if len(table) == 0:
         return True
-    src_digest = payload_digest(src_pool, src_spec,
-                                table.page_ids(src_spec, "src"))
-    dst_digest = payload_digest(dst_pool, dst_spec,
-                                table.page_ids(dst_spec, "dst"))
-    return src_digest == dst_digest
+    if src_pool.element_size() != dst_pool.element_size():
+        return False                     # unequal bytes (torch.equal compares values)
+    return torch.equal(_page_ints(src_pool, src_spec, table.page_ids(src_spec, "src")),
+                       _page_ints(dst_pool, dst_spec, table.page_ids(dst_spec, "dst")))
 
 
 def verify_pool_transfer(plan: TransferPlan, src_kv, dst_kv) -> bool:

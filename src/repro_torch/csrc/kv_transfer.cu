@@ -20,6 +20,15 @@
 // rate; otherwise the same kernel falls back to 4-, 2- or 1-byte words, so
 // any row width (64 KiB pages, 2 KiB append rows, 16-element fine rows)
 // takes one launch. Simple and correct first: no TMA, no persistent grid.
+//
+// Host route (kv_transfer_host_launch): the host-DRAM tier demotes pages
+// from the card to a pinned host pool and promotes them back with the same
+// kernel. The pinned side is read or written in place over PCIe through
+// its mapped device pointer (cudaHostGetDevicePointer; never assumed equal
+// to the host pointer), so a plan is still one launch with no staging copy.
+// Bound: the host link's rate, not HBM. Each block keeps 16 KiB of reads in
+// flight and the grid holds every page at once, far more than the link's
+// bandwidth-latency product, so the longer PCIe read latency stays hidden.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,4 +87,34 @@ extern "C" int kv_transfer_launch(const void* src, void* dst,
     launch<uint8_t>(src, dst, src_pages, dst_pages, n, row_bytes, st);
   }
   return (int)cudaGetLastError();
+}
+
+// The mapped device pointer of pinned host memory, in place; on failure
+// the error is cleared from the runtime's state (or the next launch check
+// would report it) and returned.
+static cudaError_t to_device_pointer(void** ptr) {
+  void* p = nullptr;
+  const cudaError_t err = cudaHostGetDevicePointer(&p, *ptr, 0);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  *ptr = p;
+  return cudaSuccess;
+}
+
+// One K1 launch where one pool (or both) lies in pinned host memory: each
+// host side's device pointer is resolved first, and its error returned.
+extern "C" int kv_transfer_host_launch(const void* src, void* dst,
+                                       const int32_t* src_pages,
+                                       const int32_t* dst_pages, long long n,
+                                       long long row_bytes, int src_on_host,
+                                       int dst_on_host, void* stream) {
+  if (n <= 0) return 0;
+  void* s = const_cast<void*>(src);
+  void* d = dst;
+  cudaError_t err = cudaSuccess;
+  if (src_on_host && (err = to_device_pointer(&s)) != cudaSuccess) return (int)err;
+  if (dst_on_host && (err = to_device_pointer(&d)) != cudaSuccess) return (int)err;
+  return kv_transfer_launch(s, d, src_pages, dst_pages, n, row_bytes, stream);
 }

@@ -46,13 +46,18 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict:
     """Kernel launches counted by every wrapper since the last reset, plus
-    ``flash_prefill_suffix``: the K4 launches in suffix mode."""
-    counts = {name: fn.launches for name, fn in _wrappers().items()}
-    counts["flash_prefill_suffix"] = _wrappers()["flash_prefill"].suffix_launches
+    ``flash_prefill_suffix`` (the K4 launches in suffix mode) and
+    ``kv_transfer_host`` (K1's launches with a pinned host pool)."""
+    w = _wrappers()
+    counts = {name: fn.launches for name, fn in w.items()}
+    counts["flash_prefill_suffix"] = w["flash_prefill"].suffix_launches
+    counts["kv_transfer_host"] = w["kv_transfer"].host_launches
     return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
+    w = _wrappers()
+    for fn in w.values():
         fn.launches = 0
-    _wrappers()["flash_prefill"].suffix_launches = 0
+    w["flash_prefill"].suffix_launches = 0
+    w["kv_transfer"].host_launches = 0

@@ -37,6 +37,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "kv_transfer_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _VP],
+    "kv_transfer_host_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _VP],
     "kv_gather_blocks_launch": [_VP, _VP, _VP, _LL, _LL, _VP],
     "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],

@@ -9,7 +9,8 @@ so every SM shares a block's copy) with a table built on the device. K5a
 launches its own block-copy kernel (``csrc/kv_gather.cu``), which reads the
 block ids itself and needs no table. Each wrapper counts its own launches
 in ``launches``: ``kv_gather`` and ``kv_scatter`` do not add to
-``kv_transfer.launches``.
+``kv_transfer.launches``, and K1's launches with one pool in pinned host
+memory (the host tier) count in ``kv_transfer.host_launches`` instead.
 """
 from __future__ import annotations
 
@@ -42,42 +43,70 @@ def kv_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     Both pools are viewed as flat ``(num_pages, payload)`` page tables (so
     FLOWKV and VLLM pools work on either side); ``dst[dst_pages[i]] =
     src[src_pages[i]]``. Returns ``dst_pool``.
+
+    Routes: every tensor on the CPU runs the plain version; both pools on one
+    GPU launch K1 (``launches``); one pool on a GPU and the other in pinned
+    host memory, with both page tables on that GPU, launch the same kernel
+    over the host pool's mapped pages (``host_launches``: the host tier's
+    demote and promote). The launch is asynchronous: a CPU read of a host
+    pool it wrote must synchronize the stream first. Any other mix of
+    devices, and an unpinned host pool beside a GPU one, raises.
     """
     _check(src_pool, dst_pool, src_pages, dst_pages)
     devs = {t.device for t in (src_pool, dst_pool, src_pages, dst_pages)}
-    if len(devs) != 1:
-        raise ValueError(f"kv_transfer tensors span devices {sorted(map(str, devs))}")
-    dev = dst_pool.device
-    if dev.type == "cpu":
+    if devs == {torch.device("cpu")}:
         return kv_transfer_ref(src_pool, dst_pool, src_pages, dst_pages)
-    if dev.type != "cuda":
-        raise ValueError(f"kv_transfer: unsupported device {dev}")
+    gpu = {d for d in devs if d.type == "cuda"}
+    if len(gpu) != 1 or not devs <= gpu | {torch.device("cpu")}:
+        raise ValueError(f"kv_transfer tensors span devices {sorted(map(str, devs))}")
+    dev = gpu.pop()
+    if src_pages.device != dev or dst_pages.device != dev:
+        raise ValueError(f"kv_transfer: page tables must lie on {dev}, not "
+                         f"{src_pages.device} / {dst_pages.device}")
+    host = [t.device.type == "cpu" for t in (src_pool, dst_pool)]
+    for name, t, on_host in (("src", src_pool, host[0]), ("dst", dst_pool, host[1])):
+        if on_host and not t.is_pinned():
+            raise ValueError(f"kv_transfer: the host-side {name} pool must be in "
+                             "pinned memory (torch.empty(..., pin_memory=True))")
     if not src_pool.is_contiguous():
         raise ValueError("kv_transfer: src must be contiguous")
     if src_pages.dtype != torch.int32 or dst_pages.dtype != torch.int32:
         raise TypeError("kv_transfer: page tables must be int32")
-    if _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer"):
+    if any(host):
+        if _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer",
+                         dev=dev, host=host):
+            kv_transfer.host_launches += 1
+    elif _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer"):
         kv_transfer.launches += 1
     return dst_pool
 
 
 def _launch_pages(src: torch.Tensor, dst: torch.Tensor, src_pages: torch.Tensor,
-                  dst_pages: torch.Tensor, what: str) -> bool:
+                  dst_pages: torch.Tensor, what: str, dev=None,
+                  host=(False, False)) -> bool:
     """One K1 launch over flat ``(pages, payload)`` views of two contiguous
-    CUDA tensors; False (nothing launched) for an empty table."""
+    pools on ``dev`` (default: dst's GPU); ``host`` marks a side that lies
+    in pinned host memory. False (nothing launched) for an empty table."""
     from repro_torch.kernels import build
 
     n = int(src_pages.shape[0])
     if n == 0:
         return False
+    dev = dst.device if dev is None else dev
     src_pages = src_pages.contiguous()
     dst_pages = dst_pages.contiguous()
     row_bytes = src.shape[-1] * src.element_size()
-    with torch.cuda.device(dst.device):
-        err = build.library().kv_transfer_launch(
-            src.data_ptr(), dst.data_ptr(), src_pages.data_ptr(),
-            dst_pages.data_ptr(), n, row_bytes,
-            torch.cuda.current_stream(dst.device).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        lib = build.library()
+        if any(host):
+            err = lib.kv_transfer_host_launch(
+                src.data_ptr(), dst.data_ptr(), src_pages.data_ptr(),
+                dst_pages.data_ptr(), n, row_bytes, int(host[0]), int(host[1]), stream)
+        else:
+            err = lib.kv_transfer_launch(
+                src.data_ptr(), dst.data_ptr(), src_pages.data_ptr(),
+                dst_pages.data_ptr(), n, row_bytes, stream)
     build.check(err, what)
     return True
 
@@ -169,5 +198,6 @@ def kv_scatter(pool: torch.Tensor, block_ids: torch.Tensor,
 
 
 kv_transfer.launches = 0
+kv_transfer.host_launches = 0
 kv_gather.launches = 0
 kv_scatter.launches = 0

@@ -26,11 +26,13 @@ def kv_scatter_ref(pool: torch.Tensor, block_ids: torch.Tensor,
 
 def kv_transfer_ref(src_pool: torch.Tensor, dst_pool: torch.Tensor,
                     src_pages: torch.Tensor, dst_pages: torch.Tensor) -> torch.Tensor:
-    """Descriptor-table copy over flat (num_pages, payload) page views."""
+    """Descriptor-table copy over flat (num_pages, payload) page views; the
+    two pools may lie on different devices (the host tier's moves)."""
     payload = src_pool.shape[-1]
     src_flat = src_pool.reshape(-1, payload)
     dst_flat = dst_pool.view(-1, payload)
-    dst_flat[dst_pages.long()] = src_flat[src_pages.long()].to(dst_flat.dtype)
+    rows = src_flat[src_pages.long().to(src_flat.device)]
+    dst_flat[dst_pages.long().to(dst_flat.device)] = rows.to(dst_flat.device, dst_flat.dtype)
     return dst_pool
 
 

@@ -1,0 +1,255 @@
+"""Checkpoint/restore for the serving cluster. Port of the serving half of
+``repro/serving/checkpoint.py``.
+
+Captures every node's pool, block tables, queue contents and in-flight
+request lifecycle so a controller restart resumes mid-stream.
+
+Format: numpy ``.npz`` for arrays + msgpack for structure, the reference's
+own files: a checkpoint either package writes, the other loads. Pools and
+spilled K/V are saved as float32 (exact for bf16) and restored onto the
+pool's own device and dtype, in place — the port's pools keep their
+storage. The host-DRAM tier is not saved (the reference saves none): a
+restore starts it empty. The train-state half waits for ROADMAP item 12.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import tempfile
+from typing import Dict
+
+import msgpack
+import numpy as np
+import torch
+
+from repro_torch.serving.request import Request, RequestState, SamplingParams
+
+
+# ---------------------------------------------------------------------------
+# Request (de)serialization
+# ---------------------------------------------------------------------------
+def request_to_dict(r: Request) -> dict:
+    return {
+        "request_id": int(r.request_id),
+        "prompt_tokens": [int(t) for t in r.prompt_tokens],
+        "output_tokens": [int(t) for t in r.output_tokens],
+        "state": r.state.value,
+        "prefill_node": r.prefill_node,
+        "decode_node": r.decode_node,
+        "block_ids": [int(b) for b in r.block_ids],
+        "arrival_time": r.arrival_time,
+        "max_new_tokens": r.sampling.max_new_tokens,
+        "retries": r.retries,
+        "retry_after": r.retry_after,
+        "reject_reason": r.reject_reason,
+        "num_cached_prefix_tokens": int(r.num_cached_prefix_tokens),
+        "prefix_src_node": r.prefix_src_node,
+        "prefix_block_ids": [int(b) for b in r.prefix_block_ids],
+    }
+
+
+def request_from_dict(d: dict) -> Request:
+    r = Request(prompt_tokens=list(d["prompt_tokens"]),
+                sampling=SamplingParams(max_new_tokens=d["max_new_tokens"]),
+                request_id=d["request_id"], arrival_time=d["arrival_time"])
+    r.output_tokens = list(d["output_tokens"])
+    r.state = RequestState(d["state"])
+    r.prefill_node = d["prefill_node"]
+    r.decode_node = d["decode_node"]
+    r.block_ids = list(d["block_ids"])
+    r.retries = d["retries"]
+    r.retry_after = d.get("retry_after")
+    r.reject_reason = d.get("reject_reason")
+    r.num_cached_prefix_tokens = int(d.get("num_cached_prefix_tokens", 0))
+    r.prefix_src_node = d.get("prefix_src_node")
+    r.prefix_block_ids = list(d.get("prefix_block_ids", []))
+    return r
+
+
+# ---------------------------------------------------------------------------
+# Serving cluster checkpoint
+# ---------------------------------------------------------------------------
+def cluster_state(cluster) -> dict:
+    nodes = {}
+    for nid, engine in cluster.engines.items():
+        sched = engine.scheduler
+        node = {
+            "role": cluster.controller.nodes[nid].role,
+            "alive": cluster.controller.nodes[nid].alive,
+            # role-lifecycle state (set_role / role_flip policy)
+            "home_role": cluster.controller.nodes[nid].home_role,
+            "priority": sched.priority,
+            "priority_cycles_left": sched._priority_cycles_left,
+            "queues": {
+                "prefill_waiting": [request_to_dict(r) for r in sched.prefill.waiting],
+                "prefill_running": [request_to_dict(r) for r in sched.prefill.running],
+                "sending": [request_to_dict(r) for r in sched.prefill.sending],
+                "decode_running": [request_to_dict(r) for r in sched.decode.running],
+                "decode_swapped": [request_to_dict(r) for r in sched.decode.swapped],
+            },
+            "block_table": {str(rid): [int(b) for b in engine.scheduler.bm.get(rid)]
+                            for rid in list(engine.scheduler.bm._table)},
+            # spill-path bookkeeping: lengths here, arrays in pools.npz —
+            # a checkpoint taken mid-swap must not lose the saved KV
+            "spilled": {str(rid): int(length)
+                        for rid, (_, _, length) in engine.spilled.items()},
+        }
+        nodes[str(nid)] = node
+    return {"clock": cluster.clock, "nodes": nodes,
+            "finished": [request_to_dict(r) for r in cluster.finished],
+            "cancelled": [request_to_dict(r) for r in getattr(cluster, "cancelled", [])],
+            "rejected": [request_to_dict(r) for r in getattr(cluster, "rejected", [])]}
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def save_cluster(cluster, path: str) -> None:
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    meta = cluster_state(cluster)
+    _atomic_write_bytes(path / "meta.msgpack", msgpack.packb(meta))
+    arrays = {}
+    for nid, engine in cluster.engines.items():
+        if engine.paged:
+            arrays[f"pool_{nid}"] = _f32(engine.kv.pool)
+        # spilled K/V are the engine's CPU copies (NodeEngine._spill_kv)
+        for rid, (k, v, _) in engine.spilled.items():
+            arrays[f"spill_k_{nid}_{rid}"] = _f32(k)
+            arrays[f"spill_v_{nid}_{rid}"] = _f32(v)
+    _atomic_savez(path / "pools.npz", arrays)
+
+
+def load_cluster(cluster, path: str) -> dict:
+    """Restore pools + queues into an already-constructed cluster."""
+    path = pathlib.Path(path)
+    meta = msgpack.unpackb((path / "meta.msgpack").read_bytes(), strict_map_key=False)
+    pools = np.load(path / "pools.npz")
+    cluster.clock = meta["clock"]
+    for nid_s, node in meta["nodes"].items():
+        nid = int(nid_s)
+        engine = cluster.engines[nid]
+        # roles are runtime state since set_role / the role-flip policy:
+        # restore them (plus scheduler priority) so routing and flip-back
+        # resume where the checkpoint left off
+        handle = cluster.controller.nodes[nid]
+        handle.role = node.get("role", handle.role)
+        handle.alive = bool(node.get("alive", handle.alive))
+        handle.home_role = node.get("home_role")
+        if node.get("priority"):
+            # re-arm the lease countdown too, else a temporary priority
+            # (imbalanced-regime lease) would become sticky across restore
+            engine.scheduler.set_priority(node["priority"],
+                                          cycles=node.get("priority_cycles_left", 0))
+        if engine.paged and f"pool_{nid}" in pools:
+            engine.kv.pool.copy_(torch.from_numpy(pools[f"pool_{nid}"]))
+        dtype = engine.kv.spec.dtype
+        engine.spilled = {
+            int(rid_s): (torch.from_numpy(pools[f"spill_k_{nid}_{rid_s}"]).to(dtype),
+                         torch.from_numpy(pools[f"spill_v_{nid}_{rid_s}"]).to(dtype),
+                         length)
+            for rid_s, length in node.get("spilled", {}).items()}
+        sched = engine.scheduler
+        sched.prefill.waiting.clear(); sched.prefill.running.clear()
+        sched.prefill.sending.clear(); sched.prefill.swapped.clear()
+        sched.decode.running.clear(); sched.decode.swapped.clear()
+        bm = sched.bm
+        # the checkpoint is authoritative: release every live allocation
+        # THROUGH the allocator first (a used cluster's post-save tables
+        # would otherwise strand blocks as allocated-forever, or alias
+        # since-freed blocks between a restored table and a new request),
+        # then rebuild table + refcounts from the snapshot (a block in k
+        # tables is a prefix shared k ways, matching check_invariants)
+        bm.release_all()
+        # the snapshot carries no prefix-index state: residency recorded
+        # for this node — before OR since the save — now names blocks whose
+        # contents the restore just rewrote. Evict rather than advertise
+        # another request's KV; entries repopulate as restored traffic
+        # finishes prefill.
+        if getattr(cluster, "controller", None) is not None:
+            cluster.controller.prefix_index.evict_node(nid)
+        for rid_s, blocks in node["block_table"].items():
+            bm._table[int(rid_s)] = list(blocks)
+            for b in blocks:
+                bm._refcount[b] = bm._refcount.get(b, 0) + 1
+                if isinstance(bm.allocator.__dict__.get("_free"), list):
+                    try:
+                        bm.allocator._free.remove(b)
+                        bm.allocator._allocated.add(b)
+                    except ValueError:
+                        pass
+        if hasattr(bm.allocator, "free_segments"):
+            _rebuild_segment_allocator(bm)
+        for qname, target in (("prefill_waiting", sched.prefill.waiting),
+                              ("prefill_running", sched.prefill.running),
+                              ("sending", sched.prefill.sending),
+                              ("decode_running", sched.decode.running),
+                              ("decode_swapped", sched.decode.swapped)):
+            for rd in node["queues"][qname]:
+                target.append(request_from_dict(rd))
+    cluster.finished = [request_from_dict(d) for d in meta["finished"]]
+    cluster.cancelled = [request_from_dict(d) for d in meta.get("cancelled", [])]
+    cluster.rejected = [request_from_dict(d) for d in meta.get("rejected", [])]
+    return meta
+
+
+def _rebuild_segment_allocator(bm) -> None:
+    """Reconstruct a SegmentAllocator's free heaps from the block table."""
+    from repro_torch.core.allocator import SegmentAllocator
+    from repro_torch.core.segments import Segment
+    if not isinstance(bm.allocator, SegmentAllocator):
+        return
+    allocated = set()
+    for blocks in bm._table.values():
+        allocated.update(blocks)
+    fresh = SegmentAllocator(bm.num_blocks)
+    if allocated:
+        # carve out the allocated ids
+        fresh._allocated = set()
+        fresh._heaps.__init__()
+        fresh._by_start.clear(); fresh._by_end.clear()
+        free_runs = []
+        cur = None
+        for b in range(bm.num_blocks):
+            if b in allocated:
+                if cur is not None:
+                    free_runs.append((cur, b - cur))
+                    cur = None
+            else:
+                if cur is None:
+                    cur = b
+        if cur is not None:
+            free_runs.append((cur, bm.num_blocks - cur))
+        for start, length in free_runs:
+            fresh._insert_free(Segment(start, length))
+        fresh._num_free = sum(l for _, l in free_runs)
+        fresh._allocated = set(allocated)
+    bm.allocator = fresh
+
+
+# ---------------------------------------------------------------------------
+# atomic writes
+# ---------------------------------------------------------------------------
+def _atomic_write_bytes(path: pathlib.Path, data: bytes) -> None:
+    fd, tmp = tempfile.mkstemp(dir=str(path.parent))
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _atomic_savez(path: pathlib.Path, arrays: Dict[str, np.ndarray]) -> None:
+    fd, tmp = tempfile.mkstemp(dir=str(path.parent), suffix=".npz")
+    os.close(fd)
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise

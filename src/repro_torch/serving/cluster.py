@@ -11,8 +11,9 @@ The runtime is the *correctness* half of the reproduction: disaggregated
 generation must be token-identical to monolithic generation on one engine.
 Fault tolerance: ``kill_node`` simulates a node death mid-flight; the
 controller's heartbeat scan drains and re-routes its requests.
-Not ported yet: ``checkpoint`` (ROADMAP item 7), the host-DRAM tier
-(``host_tier_blocks > 0``, item 8) and tensor-parallel nodes (item 9).
+``checkpoint``/``restore`` round-trip the full cluster state
+(``serving/checkpoint.py``). Not ported yet: tensor-parallel nodes
+(ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.core.transfer import (TransferEngine, backend_for_engine,
 from repro_torch.faults import as_injector
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import NodeEngine
+from repro_torch.serving.host_tier import TierManager
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.sim.hardware import H100, HardwareProfile
 
@@ -78,9 +80,6 @@ class PDCluster:
                  transfer_backoff_cycles: float = 0.5,
                  tp_degrees: Optional[Dict[int, int]] = None,
                  device=None):
-        if host_tier_blocks > 0:
-            raise NotImplementedError(
-                "host_tier_blocks > 0 is not ported yet: see ROADMAP.md item 8")
         if any(t != 1 for t in (tp_degrees or {}).values()):
             raise NotImplementedError(
                 "tp_degrees > 1 are not ported yet: see ROADMAP.md item 9")
@@ -114,6 +113,11 @@ class PDCluster:
         # benchmarks/prefix_reuse.py flip. Invalidation stays wired either
         # way; an empty index just never matches.
         self.prefix_reuse = prefix_reuse
+        # host_tier_blocks > 0 adds a per-node host-DRAM tier behind the
+        # pool: cold index-backed blocks demote there under capacity
+        # pressure and promote back (one fused dispatch each way) on re-use.
+        self.host_tier_blocks = host_tier_blocks
+        self.tiers: Dict[int, TierManager] = {}
         self.engines: Dict[int, NodeEngine] = {}
         model_cost = ModelCost(
             flops_per_token=2.0 * cfg.active_params(),
@@ -169,6 +173,13 @@ class PDCluster:
                  self.controller.prefix_index.invalidate_blocks(nid, blocks))
             if reuse:
                 engine.scheduler.resolve_prefix = self._make_resolver(engine)
+            if reuse and host_tier_blocks > 0:
+                self.tiers[i] = engine.tier = TierManager(
+                    i, engine.scheduler.bm, self.controller.prefix_index,
+                    engine.kv.spec, host_tier_blocks, kv=engine.kv,
+                    schedule=transfer_schedule,
+                    get_tracer=lambda: self.tracer,
+                    get_clock=lambda: self.clock).attach()
 
     def _make_resolver(self, engine: NodeEngine):
         """Admission-time prefix resolution for one node (scheduler hook):
@@ -511,6 +522,25 @@ class PDCluster:
         if self.prefix_reuse:
             self.controller.rehome_prefix(req, node_id, blocks)
 
+    # -- tier promotion (host DRAM -> pool, ahead of reuse) --------------------------
+    def _promote_pending(self, engine: NodeEngine) -> None:
+        """Lift the head-of-line waiting request's LOCAL host-tier prefix
+        back into the pool before this node schedules, so admission-time
+        resolution sees HBM blocks. Head-of-line only, like the remote
+        fetch pass — and when promotion cannot run (pool genuinely full),
+        ``resolve_local_prefix`` truncates at the first dram entry and the
+        request recomputes that tail instead of deadlocking."""
+        tm = self.tiers.get(engine.node_id)
+        if tm is None or not engine.scheduler.prefill.waiting:
+            return
+        req = engine.scheduler.prefill.waiting[0]
+        if engine.scheduler.bm.owns(req.request_id):
+            return
+        if req.prefix_src_node is not None and \
+                req.prefix_src_node != engine.node_id:
+            return   # remote plan: promotion happens at the SOURCE node
+        tm.promote_match(req.prompt_tokens, trace_id=req.request_id)
+
     # -- the prefix fetch (remote resident prefix -> local pool) ---------------------
     def _fetch_pending_prefixes(self, engine: NodeEngine) -> None:
         """Execute the remote-prefix plan for this node's next admission.
@@ -543,6 +573,17 @@ class PDCluster:
             # heartbeat scan does — clear the plan (recompute)
             req.clear_prefix_plan()
             return
+        # Source-side promotion: any of the plan's blocks that demoted to
+        # the source's host tier come back to pool blocks first (one fused
+        # host->HBM dispatch), then the stamp is refreshed — demote->promote
+        # changes physical ids, so the routed block list is stale even
+        # though the KV is intact.
+        src_tm = self.tiers.get(src_id)
+        if src_tm is not None and \
+                src_tm.promote_match(req.prompt_tokens,
+                                     trace_id=req.request_id):
+            if not self.controller.refresh_prefix_plan(req):
+                return   # nothing shareable survived promotion
         if not self.controller.validate_prefix_plan(req):
             return   # stale plan cleared by the shared validator
         hit = req.num_cached_prefix_tokens
@@ -593,6 +634,7 @@ class PDCluster:
                     not self.faults.heartbeat_suppressed(nid, self.clock):
                 self.controller.heartbeat(nid, self.clock)
             if self.prefix_reuse and engine.supports_prefix_reuse:
+                self._promote_pending(engine)
                 self._fetch_pending_prefixes(engine)
             # engine stamps prefill_start / first_token_time (the first token
             # is emitted by prefill itself, not by the transfer)
@@ -697,12 +739,19 @@ class PDCluster:
         self._dead.add(node_id)
         self.fault_kills += 1
         engine = self.engines[node_id]
+        tm = self.tiers.get(node_id)
+        if tm is not None:
+            # the host tier dies with the node: detach the demotion hook
+            # FIRST so release_all's cache drop cannot copy into a pool that
+            # no longer exists, then drop its residency advertisements
+            engine.scheduler.bm.on_evict = None
+            tm.clear()
         engine.scheduler.bm.release_all()
         engine.spilled.clear()
 
     def checkpoint(self) -> dict:
-        raise NotImplementedError(
-            "PDCluster.checkpoint is not ported yet: see ROADMAP.md item 7")
+        from repro_torch.serving.checkpoint import cluster_state
+        return cluster_state(self)
 
     # -- leak auditing ------------------------------------------------------------------
     def live_request_ids(self) -> set:
@@ -729,6 +778,9 @@ class PDCluster:
             bm = engine.scheduler.bm
             bm.check_invariants()
             leaked += sum(1 for rid in bm._table if rid not in live)
+        for tm in self.tiers.values():
+            if tm.node_id not in self._dead:
+                tm.check_invariants()
         return leaked
 
     def assert_no_leaks(self) -> None:
@@ -789,7 +841,14 @@ class PDCluster:
             "degraded_to_recompute": self.degraded_to_recompute,
             "recoveries": self.recoveries,
             "leaked_blocks": float(self.audit_blocks()),
-            # the block cache's own reuse/eviction traffic
+            # tier plane: pool blocks demoted to / promoted from host DRAM,
+            # and the LRU cache's own reuse/eviction traffic
+            "tier_demoted_blocks": sum(
+                t.demoted_blocks for t in self.tiers.values()),
+            "tier_promoted_blocks": sum(
+                t.promoted_blocks for t in self.tiers.values()),
+            "tier_host_resident": sum(
+                t.host.num_resident for t in self.tiers.values()),
             "cached_reused": sum(
                 e.scheduler.bm.cached_reused for e in self.engines.values()),
             "cached_evicted": sum(

@@ -98,7 +98,10 @@ class NodeEngine:
         self._decode_cache_keys: Set[Tuple[int, int]] = set()   # buckets seen
         # -- prefix-reuse data plane ---------------------------------------------------
         self.supports_prefix_reuse = self.model.prefill_suffix is not None
-        self.tier = None                   # host tier: not ported (ROADMAP item 8)
+        # Optional repro_torch.serving.host_tier.TierManager, attached by
+        # the cluster when host_tier_blocks > 0 (reuse-capable engines
+        # only): the node's host-DRAM tier for demoted prefix blocks.
+        self.tier = None
         self.prefill_tokens_computed = 0   # prompt tokens actually forwarded
         self.prefix_hits = 0               # prefills that reused a resident prefix
         self.prefix_tokens_reused = 0      # prompt tokens NOT recomputed

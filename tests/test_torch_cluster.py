@@ -29,6 +29,16 @@ from repro_torch.serving.request import Request, RequestState, SamplingParams  #
 STEPS = 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs under pytest-xdist (``-n 6``), and
+    torch's default thread count oversubscribes the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module")
 def setup():
     rcfg = ref_smoke("qwen3-1.7b")

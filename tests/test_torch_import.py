@@ -101,13 +101,18 @@ def test_out_of_scope_features_name_their_roadmap_item():
         (lambda: get_smoke_config("mamba2-370m"), "item 11"),
         (lambda: PDCluster(cfg, params, num_blocks=8, device="cpu",
                            tp_degrees={0: 2}), "item 9"),
-        (lambda: PDCluster(cfg, params, num_blocks=8, device="cpu",
-                           host_tier_blocks=4), "item 8"),
-        (lambda: PDCluster(cfg, params, num_blocks=8, device="cpu").checkpoint(),
-         "item 7"),
         (lambda: ShardedKVCache(None, 2), "item 9"),
         (lambda: ShardedTransferEngine(None, None, None, None), "item 9"),
     ]
     for fn, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()
+    # items 8 and 7 are ported: the host tier and the serving checkpoint work
+    from repro_torch.serving.host_tier import TierManager
+
+    tiered = PDCluster(cfg, params, num_blocks=8, device="cpu", host_tier_blocks=4)
+    assert sorted(tiered.tiers) == sorted(tiered.engines)
+    assert all(isinstance(tm, TierManager) and tm.host.num_blocks == 4
+               and tiered.engines[nid].tier is tm for nid, tm in tiered.tiers.items())
+    state = PDCluster(cfg, params, num_blocks=8, device="cpu").checkpoint()
+    assert set(state) == {"clock", "nodes", "finished", "cancelled", "rejected"}

@@ -38,6 +38,16 @@ def _configs(arch, **over):
             dataclasses.replace(get_smoke_config(arch), **over))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs under pytest-xdist (``-n 6``), and
+    torch's default thread count oversubscribes the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def models(request):
     rcfg, cfg = _configs(request.param)

@@ -13,6 +13,7 @@ shapes and on e2e_prefix's shapes. The CUDA kernel itself is held against
 the plain version on the card (``gpu`` tests in
 ``test_torch_prefill_kernels.py``).
 """
+import functools
 import inspect
 
 import numpy as np
@@ -32,6 +33,17 @@ H100_SMS = 132
 BOUNDARY = [(16, 15), (16, 16), (16, 17), (16, 33), (16, 48), (64, 63), (64, 64), (64, 65),
             (64, 129), (KEYS_PER_SPLIT, 511), (KEYS_PER_SPLIT, 512), (KEYS_PER_SPLIT, 513),
             (KEYS_PER_SPLIT, 1025)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs under pytest-xdist (``-n 6``), and
+    torch's default thread count oversubscribes the cores (a row loop of
+    small einsums pays for that on every call)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.fixture(scope="module")
@@ -76,12 +88,18 @@ def test_split_ref_non_causal_matches_reference_kernel(ref, t):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
 
+@functools.lru_cache(maxsize=None)
+def _cold_call(span, t):
+    """The inputs and the cold call of one (span, t), computed once."""
+    q, k, v = map(torch.from_numpy, _inputs(np.random.RandomState(t), 2, t, t))
+    return q, k, v, flash_prefill_split_ref(q, k, v, keys_per_split=span)
+
+
 @pytest.mark.parametrize("span,t", [(16, 70), (64, 200), (KEYS_PER_SPLIT, 1100)])
 def test_split_ref_rows_bit_identical_across_s_and_offset(span, t):
     """Row q_offset + i of a suffix call equals that row of the cold call bit
     for bit, at offsets on, beside and between the split boundaries."""
-    q, k, v = map(torch.from_numpy, _inputs(np.random.RandomState(t), 2, t, t))
-    cold = flash_prefill_split_ref(q, k, v, keys_per_split=span)
+    q, k, v, cold = _cold_call(span, t)
     offsets = sorted({1, span - 1, span, span + 1, t // 2, t - 1} - {0})
     for off in offsets:
         suf = flash_prefill_split_ref(q[:, off:], k, v, q_offset=off, keys_per_split=span)
