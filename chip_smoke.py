@@ -22,7 +22,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
                  and at gemma-2b's head shape, in both dtypes (bf16 on the
                  tensor cores; fp32 with its launch plan and its share of
-                 the FMA bound), plus its suffix rows bit-identical to its
+                 the FMA bound), sim_calibrate's bf16 shapes (cold 4096
+                 and 256, suffix 200 at q_offset 1056), plus its suffix rows bit-identical to its
                  cold rows in fp32 and in bf16; K5a (33-block gather, its
                  own block copy) and K5b (47-block scatter), bit-exact, K5b
                  also timed device-only; kernel, plain, bound and library
@@ -70,6 +71,26 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  against the host link's bound (nvidia-smi) and the PyTorch
                  calls that make the same move; its host-route launch count
                  goes into the ``kernels`` line as ``kv_transfer_host``.
+8. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
+                 own prefill (``obs/calibrate.check`` on the card):
+                 full-width, full-depth qwen3-1.7b at its bfloat16, 8 prompt
+                 lengths from 256 to 4096 (the half above flash_threshold
+                 launches K4; its launches are counted and checked), the
+                 wall fitted on the even lengths and scored on the odd ones
+                 against the reference's 0.75 median bound, and reported as
+                 degenerate where it is not physical; each length's wall
+                 beside the stock profile's price and its device time by
+                 part, the device time fitted the same way, which must be
+                 physical (a positive slope, at most the peak). Then the
+                 tier run on 1P+1D (48 pool and 128 pinned host blocks, a
+                 1056-token prefix, one churn prompt, a follower) served on
+                 the card and simulated by ClusterSim under the same
+                 weakened router: the follower's reuse, the prefix fetches
+                 and the tier_demote / tier_promote span stream must be
+                 equal, with K1 (transfer, append, host route), K3, K4
+                 (cold and suffix), K5a and K5b launched. K4's shapes in
+                 this phase (cold 4096 and 256, suffix 200 over 1256, bf16)
+                 are held against its plain version in the kernels phase.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -454,16 +475,25 @@ def _sdpa(torch, q, k, v, q_offset):
 def _k4_cases(torch, peaks, gen, flush) -> dict:
     """K4 against its plain version: cold S = T = 1500 and suffix S = 400
     over T = 1456 at qwen3-1.7b's heads, and gemma-2b's heads (hd 256,
-    KV 1, H 8) cold at 1024, in float32 and bfloat16; and the suffix rows
-    of the fp32 kernel bit-identical to the same rows of its cold call."""
+    KV 1, H 8) cold at 1024, in float32 and bfloat16; in bfloat16 also
+    sim_calibrate's shapes: its sweep's longest prompt (cold 4096), a
+    prompt below flash_threshold (cold 256) and the parity run's follower
+    (suffix 200 over 1256); and the suffix rows of the fp32 kernel
+    bit-identical to the same rows of its cold call."""
     from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
     from repro_torch.kernels.flash_prefill.ops import launch_plan
 
-    cases = [("cold", 1500, 0, 16, 8, 128), ("suffix", 400, 1056, 16, 8, 128),
-             ("cold gemma-2b heads", 1024, 0, 8, 1, 256)]
+    both = (torch.float32, torch.bfloat16)
+    cases = [(both, "cold", 1500, 0, 16, 8, 128), (both, "suffix", 400, 1056, 16, 8, 128),
+             (both, "cold gemma-2b heads", 1024, 0, 8, 1, 256),
+             ((torch.bfloat16,), "cold, the sweep's longest", 4096, 0, 16, 8, 128),
+             ((torch.bfloat16,), "cold, below flash_threshold", 256, 0, 16, 8, 128),
+             ((torch.bfloat16,), "suffix, the parity follower", 200, 1056, 16, 8, 128)]
     mains = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for tag, s, off, H, KV, hd in cases:
+    for dtype in both:
+        for dtypes, tag, s, off, H, KV, hd in cases:
+            if dtype not in dtypes:
+                continue
             t = s + off
             mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
             q, k, v = mk(1, s, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
@@ -1269,18 +1299,21 @@ def _host_route_timing(torch, cfg, peaks) -> dict:
     return out
 
 
-def _tier_run(torch, cfg, params, prompts, host_blocks, hw):
+def _tier_run(torch, cfg, params, prompts, host_blocks, hw, num_decode=2):
     """The donor, then each unrelated prompt, then the follower, one after
     another, each served to the end on 1P+2D (two prompts of the churn at
     once could both be routed to one decode node, which cannot hold them);
-    returns (cluster, requests, counts)."""
+    returns (cluster, requests, counts), the cluster traced
+    (``cluster.tracer``)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs.tracing import attach_tracer
     from repro_torch.serving.cluster import PDCluster
     from repro_torch.serving.request import Request, SamplingParams
 
-    cluster = PDCluster(cfg, params, num_prefill=1, num_decode=2, num_blocks=TIER_BLOCKS,
-                        max_batch_tokens=4096, host_tier_blocks=host_blocks, hardware=hw,
-                        device=DEVICE)
+    cluster = PDCluster(cfg, params, num_prefill=1, num_decode=num_decode,
+                        num_blocks=TIER_BLOCKS, max_batch_tokens=4096,
+                        host_tier_blocks=host_blocks, hardware=hw, device=DEVICE)
+    attach_tracer(cluster)
     reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(max_new_tokens=FT_NEW_TOKENS))
             for p in prompts]
     sync(torch)
@@ -1483,6 +1516,194 @@ def phase_e2e_faults_tier(torch, env) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sim_calibrate: the H100 profile fitted from the port's prefill; sim = real
+# ---------------------------------------------------------------------------
+SIM_GAP_S = 1e9        # sim seconds between arrivals: at 1e6 FLOP/s one prompt prices ~1e7 s
+
+
+def _tier_spans(rec) -> list:
+    return [(s.name, s.node_id, s.attrs["num_blocks"]) for s in rec.spans
+            if s.name in ("tier_demote", "tier_promote")]
+
+
+def sim_tier_prompts(cfg) -> list:
+    """The parity run's donor (prefix + 64), one churn prompt and follower
+    (prefix + 200), from a seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 3)
+    prefix = rng.randint(0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    return [prefix + rng.randint(0, cfg.vocab_size, size=DONOR_TAIL).tolist(),
+            rng.randint(0, cfg.vocab_size, size=TIER_CHURN[0]).tolist(),
+            prefix + rng.randint(0, cfg.vocab_size, size=TIER_FOLLOWER_TAIL).tolist()]
+
+
+def _sim_tier_run(cfg, prompts, hw) -> tuple:
+    """ClusterSim with the tier run's pool and tier shapes on 1P+1D, the
+    prompts arriving one after another; returns (requests, stats, spans)."""
+    from repro_torch.obs.tracing import attach_tracer
+    from repro_torch.serving.request import Request, SamplingParams
+    from repro_torch.sim.cluster_sim import ClusterSim
+
+    sim = ClusterSim(cfg, "flowkv", num_prefill=1, num_decode=1, hw_prefill=hw,
+                     hw_decode=hw, blocks_per_node=TIER_BLOCKS,
+                     host_tier_blocks=TIER_HOST_BLOCKS)
+    rec = attach_tracer(sim)
+    reqs = [Request(prompt_tokens=list(p), sampling=SamplingParams(max_new_tokens=FT_NEW_TOKENS),
+                    arrival_time=i * SIM_GAP_S) for i, p in enumerate(prompts)]
+    stats = sim.run(list(reqs), t_max=SIM_GAP_S * (len(reqs) + 1))
+    check(stats["finished"] == len(reqs) and sim.audit_blocks() == 0,
+          f"sim_calibrate: the sim finished {stats['finished']} of {len(reqs)} or leaked")
+    return reqs, stats, _tier_spans(rec)
+
+
+def _fit_scored(cal, samples, name) -> dict:
+    """``fit_hardware`` on the even samples from the ``H100`` profile,
+    scored on the odd ones as ``obs/calibrate.check`` scores a sweep. The
+    fit is physical when its slope is positive and its effective FLOP/s at
+    most the profile's peak (``fit_compute`` reads a slope <= 0 as 1e18
+    FLOP/s, so the second test holds both)."""
+    from repro_torch.sim.hardware import H100
+
+    hw = cal.fit_hardware(samples[::2], base=H100, name=name)
+    errors = [abs(hw.prefill_time(f) - t) / t for f, t in samples[1::2]]
+    eff = hw.peak_flops * hw.mfu_prefill
+    return dict(profile=hw, effective_tflops=eff / 1e12, mfu_prefill=hw.mfu_prefill,
+                step_overhead_ms=hw.step_overhead_s * 1e3, held_out_rel_errors=errors,
+                median_rel_error=statistics.median(errors),
+                status="fitted" if 0 < eff <= hw.peak_flops else "degenerate")
+
+
+def prefill_fn(torch, params, cfg, n: int):
+    """One prefill of an ``n``-token prompt, as a call for the timers."""
+    from repro_torch.models import transformer as T
+
+    tokens = torch.zeros((1, n), dtype=torch.int32, device=DEVICE)
+
+    def fn():
+        with torch.inference_mode():
+            T.prefill(params, cfg, tokens)
+    return fn
+
+
+def calibrate_on_card(torch, cfg, params) -> dict:
+    """``obs/calibrate.check`` on the card (the wall of the port's prefill
+    at GPU_PROMPT_LENS, fitted from ``H100``), then one profiled prefill a
+    length for its device time by part, fitted the same way. Returns the
+    check's result, the K4 launches of its sweep, the splits and both fits
+    (``_fit_scored``)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import calibrate as cal
+
+    sync(torch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cal.check(device=DEVICE, arch=cfg.name)
+    sync(torch)
+    sweep_s = time.perf_counter() - t0
+    k4 = launch_counts()["flash_prefill"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = [_profile_split(torch, prefill_fn(torch, params, cfg, n))
+             for n in cal.GPU_PROMPT_LENS]
+    wall_fit = _fit_scored(cal, [tuple(x) for x in res["samples"]], "H100-80G-wall-fit")
+    device_fit = _fit_scored(cal, [(f, p["device_ms"] / 1e3)
+                                   for (f, _), p in zip(res["samples"], split)],
+                             "H100-80G-device-fit")
+    return dict(res=res, sweep_s=sweep_s, k4_launches=k4, split=split,
+                wall_fit=wall_fit, device_fit=device_fit)
+
+
+def phase_sim_calibrate(torch, env) -> None:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.obs import calibrate as cal
+    from repro_torch.sim.hardware import H100
+
+    tag = "sim_calibrate"
+    data = {"card": env["smi"]}
+    t_phase = time.perf_counter()
+
+    # (a) the port's prefill, full width and depth at the config's own bf16,
+    # swept on both sides of flash_threshold; fit on the even points. The
+    # gate scores the wall fit's prices; where the host sets the wall its
+    # line is nearly flat and may be degenerate, so the device-time fit
+    # must be physical.
+    cfg = get_config(ARCH)
+    check(cfg.dtype == torch.bfloat16, f"{tag}: {ARCH} is not bf16")
+    params = get_model(cfg).init(SEED, DEVICE)
+    c = calibrate_on_card(torch, cfg, params)
+    res, split, lens = c["res"], c["split"], cal.GPU_PROMPT_LENS
+    above = sum(1 for n in lens if n > cfg.flash_threshold)
+    check(res["config"] == cfg.name and res["base"] == H100.name and
+          res["device"].startswith("cuda"),
+          f"{tag}: the sweep ran {res['config']} on {res['device']} from {res['base']}")
+    check(c["k4_launches"] >= cfg.num_layers * cal.REPEATS * above,
+          f"{tag}: {c['k4_launches']} K4 launches for {above} lengths above "
+          f"{cfg.flash_threshold} x {cal.REPEATS} timed calls x {cfg.num_layers} layers")
+    check(all(np.isfinite(t) and t > 0 for _, t in res["samples"]), f"{tag}: bad walls")
+    fits = {k: {n: v for n, v in c[k].items() if n != "profile"}
+            for k in ("wall_fit", "device_fit")}
+    dev_hw = c["device_fit"]["profile"]
+    data["calibration"] = dict(
+        model=cfg.name, dtype=str(cfg.dtype), layers=cfg.num_layers, d_model=cfg.d_model,
+        repeats=cal.REPEATS, sweep_s=c["sweep_s"], k4_launches=c["k4_launches"],
+        bound=res["bound"], **fits,
+        sweep=[{"prompt_len": n, "flops": f, "wall_ms": t * 1e3,
+                "stock_h100_ms": H100.prefill_time(f) * 1e3,
+                "measured_over_stock": t / H100.prefill_time(f),
+                "held_out": i % 2 == 1, "device_ms": p["device_ms"],
+                "device_fit_ms": dev_hw.prefill_time(f) * 1e3,
+                "device_busy_share": p["device_busy_share"], "k4_ms": p["k4_ms"],
+                "split_ms": p["split_ms"]}
+               for i, (n, (f, t), p) in enumerate(zip(lens, res["samples"], split))])
+    check(res["ok"], f"{tag}: median held-out error {res['median_rel_error']:.3f} > "
+          f"{res['bound']}")
+    check(fits["device_fit"]["status"] == "fitted",
+          f"{tag}: the device-time fit is not physical: {fits['device_fit']}")
+
+    # (b) the tier run, real on the card and simulated, 1P+1D: the same
+    # decision for the follower and the same demote/promote span stream
+    prompts = sim_tier_prompts(cfg)
+    weak = dataclasses.replace(H100, peak_flops=1e6)     # fetch, not recompute (e2e_prefix)
+    t0 = time.perf_counter()
+    cluster, reqs, pcounts = _tier_run(torch, cfg, params, prompts, TIER_HOST_BLOCKS, weak,
+                                       num_decode=1)
+    real_s = time.perf_counter() - t0
+    real_spans = _tier_spans(cluster.tracer)
+    s = cluster.stats()
+    check(cluster.audit_blocks() == 0, f"{tag}: leaked blocks on the card")
+    cluster.assert_no_leaks()
+    del cluster, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sreqs, sstats, sim_spans = _sim_tier_run(cfg, prompts, weak)
+    real_hit, sim_hit = reqs[-1].num_cached_prefix_tokens, sreqs[-1].num_cached_prefix_tokens
+    data["parity"] = dict(
+        nodes="1P+1D", prompt_lens=[len(p) for p in prompts], pool_blocks=TIER_BLOCKS,
+        host_blocks=TIER_HOST_BLOCKS, router_profile="H100 with peak_flops=1e6",
+        real_s=real_s, launches=pcounts,
+        follower_cached=[real_hit, sim_hit],
+        prefix_fetches=[s["prefix_fetches"], sstats["prefix_fetches"]],
+        tier_spans_equal=real_spans == sim_spans, tier_spans=real_spans,
+        tokens=[len(r.output_tokens) for r in reqs])
+    check(real_hit == sim_hit > 0, f"{tag}: follower reuse real {real_hit} != sim {sim_hit}")
+    check(s["prefix_fetches"] == sstats["prefix_fetches"] >= 1,
+          f"{tag}: prefix fetches real {s['prefix_fetches']} != sim {sstats['prefix_fetches']}")
+    check(real_spans == sim_spans and {n for n, _, _ in real_spans} ==
+          {"tier_demote", "tier_promote"},
+          f"{tag}: tier span streams differ:\n real={real_spans}\n  sim={sim_spans}")
+    check(all(pcounts[k] > 0 for k in ("kv_transfer", "kv_transfer_host",
+                                       "paged_decode_attention", "flash_prefill",
+                                       "flash_prefill_suffix", "kv_gather", "kv_scatter")),
+          f"{tag}: a kernel was not launched in the parity run: {pcounts}")
+    data["seconds"] = time.perf_counter() - t_phase
+    emit(tag, **data)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -1506,6 +1727,7 @@ def main() -> int:
     decode_counts = phase_e2e(torch, torch.bfloat16, env)
     prefill_counts = phase_e2e_prefix(torch, env)
     tier_counts, host_route = phase_e2e_faults_tier(torch, env)
+    phase_sim_calibrate(torch, env)
     promote = host_route["promote"]
     rows["kv_transfer_host"] = dict(
         promote, bound_by="bytes",
