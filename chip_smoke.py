@@ -27,7 +27,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  cold rows in fp32 and in bf16; K5a (33-block gather, its
                  own block copy) and K5b (47-block scatter), bit-exact, K5b
                  also timed device-only; kernel, plain, bound and library
-                 times.
+                 times. At e2e_moe_tp's shapes (granite-moe-1b-a400m: L=24,
+                 KV=8, hd=64): K1 over the fine (-1, hd) rows of a
+                 1500-token bf16 prompt moved TP 2 -> 4 (four shard pairs,
+                 bit-exact, beside index_copy_ on the same rows), K3 at the
+                 heads one shard sees at TP 1 / 2 / 4 (B=4) in both dtypes,
+                 K4 cold at granite's heads (S = T = 1500) in both dtypes and
+                 in bf16 at llama4-scout's (40/8, hd 128, S = 1500) and
+                 llava-next's heads (56/8, hd 128, 2880 patches + 128 text
+                 tokens), and K4's suffix rows bit-identical to its cold
+                 rows at hd 64.
 4. ``e2e_fp32`` — FlowKVClient on full-width, full-depth qwen3-1.7b in
                  float32 (1 prefill + 1 decode node, 256 blocks, 4 prompts
                  of 200-1500 tokens, 16 new tokens each): tokens identical
@@ -71,7 +80,31 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  against the host link's bound (nvidia-smi) and the PyTorch
                  calls that make the same move; its host-route launch count
                  goes into the ``kernels`` line as ``kv_transfer_host``.
-8. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
+8. ``e2e_moe_tp`` — granite-moe-1b-a400m (32 experts, top-8, dense
+                 dispatch) at full width and depth, 1 prefill + 1 decode
+                 node of 192 blocks, prompts of 200-1500 tokens, 8 new
+                 tokens each, random weights from seed 0 with the
+                 attention's wq / wk / wv tempered (``MOE_ATTN_SCALE``;
+                 ``tools/moe_conditioning_probe.py`` shows why). float32
+                 at TP 1, 2 -> 2 and 2 -> 4: tokens identical to
+                 monolithic greedy_generate, whose streams hold at least
+                 4 distinct tokens of 8; 1 / 2 / 4 K1
+                 launches a transfer (one per shard pair), every device
+                 verify passing, no leak, K3 launched layers x shards times
+                 a step, K1 / K4 / K5b launched. On one prefilled state,
+                 the first decode step's logits: paged at TP 1 against
+                 dense decode_step, and paged at TP 2 and 4 against TP 1
+                 (fail above 1e-3); the sharded prefill of 1100 tokens at
+                 TP 2 and 4 against TP 1 (fail above 2e-2); and each limit
+                 must be exceeded by a planted fault (shard 1's K3 or K4
+                 output rounded to bf16 at TP 2). bfloat16 at TP 1 and 2 -> 4:
+                 first tokens equal to monolithic prefill; TTFT and
+                 transfer walls; the decode step's wall and device time
+                 with K3's and the MoE FFNs' shares against the expert
+                 weights' read floor; one cold 1500-token prefill's device
+                 time split. The 2 -> 4 run's fine-row K1 launch count
+                 goes into the ``kernels`` line as ``kv_transfer_fine``.
+9. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
                  own prefill (``obs/calibrate.check`` on the card):
                  full-width, full-depth qwen3-1.7b at its bfloat16, 8 prompt
                  lengths from 256 to 4096 (the half above flash_threshold
@@ -98,6 +131,7 @@ summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -357,6 +391,7 @@ def phase_kernels(torch, env) -> dict:
     rows["paged_decode_attention"] = _k3_cases(torch, peaks, gen, flush, L, KV, hd, bs, H)
     rows.update(_k4_cases(torch, peaks, gen, flush))
     rows.update(_k5_cases(torch, peaks, gen, flush, L, bs, KV, hd))
+    rows.update(_tp_kernel_cases(torch, peaks, gen, flush))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -373,8 +408,6 @@ def _k3_cases(torch, peaks, gen, flush, L, KV, hd, bs, H) -> dict:
     row of the B=8 case bit-identical to the same row alone at B=1 with a
     table exactly its pages wide."""
     from repro_torch.core.layout import KVCacheSpec
-    from repro_torch.kernels.paged_attention import (paged_decode_attention,
-                                                     paged_decode_attention_stats_ref)
 
     nb = 512
     main = None
@@ -384,76 +417,88 @@ def _k3_cases(torch, peaks, gen, flush, L, KV, hd, bs, H) -> dict:
                             num_kv_heads=KV, head_dim=hd, dtype=dtype)
         kpool = torch.randn(pspec.shape, generator=gen, device=DEVICE).to(dtype)
         for B, lens, W in K3_CASES:
-            q = torch.randn((B, H, hd), generator=gen, device=DEVICE).to(dtype)
-            bt = torch.stack([torch.randperm(nb, generator=gen, device=DEVICE)[:W]
-                              for _ in range(B)]).to(torch.int32)
-            for i, ln in enumerate(lens):              # zero-pad past each row's pages
-                bt[i, -(-ln // bs):] = 0
-            lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-            out, m, l = paged_decode_attention(q, kpool, layer, bt, lengths,
-                                               block_size=bs, return_stats=True)
-            ro, rm, rl = paged_decode_attention_stats_ref(q, kpool[:, layer], bt, lengths, bs)
-            sync(torch)
-            err = float((out.float() - ro.float()).abs().max())
-            err_m = float((m - rm).abs().max())
-            err_l = float(((l - rl).abs() / rl.clamp(min=1e-30)).max())
-            zero_ok = True
-            if 0 in lens:
-                z = lens.index(0)
-                zero_ok = bool((out[z] == 0).all() and (l[z] == 0).all()
-                               and (m[z] == torch.finfo(torch.float32).min).all())
-            check(zero_ok, f"K3 length-0 row wrong ({dtype}, B={B})")
-            if dtype == torch.float32:
-                ok = err <= FP32_TOL and err_m <= FP32_TOL and err_l <= FP32_TOL
-                up_err = err
-            else:
-                ok = err <= BF16_TOL and err_m <= 5e-2
-                uo, um, ul = paged_decode_attention_stats_ref(
-                    q.float(), kpool[:, layer].float(), bt, lengths, bs)
-                up_err = float((out.float() - uo).abs().max())
-                up_m = float((m - um).abs().max())
-                up_l = float(((l - ul).abs() / ul.clamp(min=1e-30)).max())
-                ok = ok and up_err <= BF16_UPCAST_TOL and up_m <= 1e-4 and up_l <= 1e-4
-            check(ok, f"K3 disagrees ({dtype}, B={B}): out {err}, m {err_m}, "
-                      f"l rel {err_l}, vs upcast {up_err}")
-            identical = None
-            if B == 8:                                  # a row alone == the row in the batch
-                identical = {}
-                for r, ln in enumerate(lens):
-                    own = bt[r:r + 1, :max(1, -(-ln // bs))].contiguous()
-                    one = paged_decode_attention(q[r:r + 1], kpool, layer, own, lengths[r:r + 1],
-                                                 block_size=bs, return_stats=True)
-                    identical[ln] = all(bool(torch.equal(a[r:r + 1], b_))
-                                        for a, b_ in zip((out, m, l), one))
-                check(all(identical.values()),
-                      f"K3 {dtype}: rows alone differ from the same rows at B=8: {identical}")
-            valid = sum(lens)
-            esz = pspec.dtype.itemsize
-            nbytes = (2 * valid * KV * hd * esz + 2 * q.numel() * esz
-                      + 2 * m.numel() * 4 + bt.numel() * 4 + lengths.numel() * 4)
-            flops = 4 * valid * H * hd
-            key = "fp32" if dtype == torch.float32 else "bf16"
-            b3, b3_by = bound_ms(nbytes, flops, peaks, key)
-            plane = kpool[:, layer]
-            t3 = time_ms(torch, lambda: paged_decode_attention(
-                q, kpool, layer, bt, lengths, block_size=bs, return_stats=True), flush=flush)
-            t3p = time_ms(torch, lambda: paged_decode_attention_stats_ref(
-                q, plane, bt, lengths, bs), flush=flush)
-            t3d = device_only_ms(torch, lambda: paged_decode_attention(
-                q, kpool, layer, bt, lengths, block_size=bs, return_stats=True),
-                "paged_decode", flush=flush)
-            emit("kernels", kernel="paged_decode_attention", dtype=str(dtype), batch=B,
-                 lengths=lens, table_width=W, max_abs_err=err, m_err=err_m,
-                 l_rel_err=err_l, vs_upcast_err=up_err, length0_ok=zero_ok,
-                 rows_alone_bit_identical=identical, ms=t3, device_only_ms=t3d, plain_ms=t3p,
-                 faster_than_plain=t3 < t3p, bound_ms=b3, bound_by=b3_by,
-                 bound_share=b3 / t3, bytes=nbytes)
+            row = _k3_case(torch, peaks, gen, flush, kpool, pspec, layer, H, B, lens, W)
             if dtype == torch.bfloat16 and B == 4:
-                main = dict(shape=f"B=4 bf16 (the e2e decode step), lengths {lens}, W={W}",
-                            max_abs_err=err, ms=t3, plain_ms=t3p, library_ms=None,
-                            bound_ms=b3, bound_by=b3_by)
+                main = dict(row, shape=f"B=4 bf16 (the e2e decode step), lengths {lens}, W={W}")
         del kpool
     return main
+
+
+def _k3_case(torch, peaks, gen, flush, kpool, pspec, layer, H, B, lens, W, tag=None) -> dict:
+    """One K3 call against its plain version (and, in bf16, the plain
+    version on the upcast values), times and bound; at B=8 every row is
+    also held bit-identical to the same row alone."""
+    from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                     paged_decode_attention_stats_ref)
+
+    dtype, bs, KV, hd = pspec.dtype, pspec.block_size, pspec.num_kv_heads, pspec.head_dim
+    nb = pspec.num_blocks
+    q = torch.randn((B, H, hd), generator=gen, device=DEVICE).to(dtype)
+    bt = torch.stack([torch.randperm(nb, generator=gen, device=DEVICE)[:W]
+                      for _ in range(B)]).to(torch.int32)
+    for i, ln in enumerate(lens):              # zero-pad past each row's pages
+        bt[i, -(-ln // bs):] = 0
+    lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    out, m, l = paged_decode_attention(q, kpool, layer, bt, lengths,
+                                       block_size=bs, return_stats=True)
+    ro, rm, rl = paged_decode_attention_stats_ref(q, kpool[:, layer], bt, lengths, bs)
+    sync(torch)
+    err = float((out.float() - ro.float()).abs().max())
+    err_m = float((m - rm).abs().max())
+    err_l = float(((l - rl).abs() / rl.clamp(min=1e-30)).max())
+    zero_ok = True
+    if 0 in lens:
+        z = lens.index(0)
+        zero_ok = bool((out[z] == 0).all() and (l[z] == 0).all()
+                       and (m[z] == torch.finfo(torch.float32).min).all())
+    check(zero_ok, f"K3 length-0 row wrong ({dtype}, B={B})")
+    if dtype == torch.float32:
+        ok = err <= FP32_TOL and err_m <= FP32_TOL and err_l <= FP32_TOL
+        up_err = err
+    else:
+        ok = err <= BF16_TOL and err_m <= 5e-2
+        uo, um, ul = paged_decode_attention_stats_ref(
+            q.float(), kpool[:, layer].float(), bt, lengths, bs)
+        up_err = float((out.float() - uo).abs().max())
+        up_m = float((m - um).abs().max())
+        up_l = float(((l - ul).abs() / ul.clamp(min=1e-30)).max())
+        ok = ok and up_err <= BF16_UPCAST_TOL and up_m <= 1e-4 and up_l <= 1e-4
+    check(ok, f"K3 disagrees ({dtype}, B={B}, H {H} KV {KV} hd {hd}): out {err}, m {err_m}, "
+              f"l rel {err_l}, vs upcast {up_err}")
+    identical = None
+    if B == 8:                                  # a row alone == the row in the batch
+        identical = {}
+        for r, ln in enumerate(lens):
+            own = bt[r:r + 1, :max(1, -(-ln // bs))].contiguous()
+            one = paged_decode_attention(q[r:r + 1], kpool, layer, own, lengths[r:r + 1],
+                                         block_size=bs, return_stats=True)
+            identical[ln] = all(bool(torch.equal(a[r:r + 1], b_))
+                                for a, b_ in zip((out, m, l), one))
+        check(all(identical.values()),
+              f"K3 {dtype}: rows alone differ from the same rows at B=8: {identical}")
+    valid = sum(lens)
+    esz = pspec.dtype.itemsize
+    nbytes = (2 * valid * KV * hd * esz + 2 * q.numel() * esz
+              + 2 * m.numel() * 4 + bt.numel() * 4 + lengths.numel() * 4)
+    flops = 4 * valid * H * hd
+    key = "fp32" if dtype == torch.float32 else "bf16"
+    b3, b3_by = bound_ms(nbytes, flops, peaks, key)
+    plane = kpool[:, layer]
+    t3 = time_ms(torch, lambda: paged_decode_attention(
+        q, kpool, layer, bt, lengths, block_size=bs, return_stats=True), flush=flush)
+    t3p = time_ms(torch, lambda: paged_decode_attention_stats_ref(
+        q, plane, bt, lengths, bs), flush=flush)
+    t3d = device_only_ms(torch, lambda: paged_decode_attention(
+        q, kpool, layer, bt, lengths, block_size=bs, return_stats=True),
+        "paged_decode", flush=flush)
+    emit("kernels", kernel="paged_decode_attention", case=tag, dtype=str(dtype), batch=B,
+         heads=[H, KV, hd], lengths=lens, table_width=W, max_abs_err=err, m_err=err_m,
+         l_rel_err=err_l, vs_upcast_err=up_err, length0_ok=zero_ok,
+         rows_alone_bit_identical=identical, ms=t3, device_only_ms=t3d, plain_ms=t3p,
+         faster_than_plain=t3 < t3p, bound_ms=b3, bound_by=b3_by,
+         bound_share=b3 / t3, bytes=nbytes)
+    return dict(max_abs_err=err, ms=t3, device_only_ms=t3d, plain_ms=t3p, library_ms=None,
+                bound_ms=b3, bound_by=b3_by)
 
 
 def _sdpa(torch, q, k, v, q_offset):
@@ -480,9 +525,6 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
     prompt below flash_threshold (cold 256) and the parity run's follower
     (suffix 200 over 1256); and the suffix rows of the fp32 kernel
     bit-identical to the same rows of its cold call."""
-    from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
-    from repro_torch.kernels.flash_prefill.ops import launch_plan
-
     both = (torch.float32, torch.bfloat16)
     cases = [(both, "cold", 1500, 0, 16, 8, 128), (both, "suffix", 400, 1056, 16, 8, 128),
              (both, "cold gemma-2b heads", 1024, 0, 8, 1, 256),
@@ -494,62 +536,79 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
         for dtypes, tag, s, off, H, KV, hd in cases:
             if dtype not in dtypes:
                 continue
-            t = s + off
-            mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
-            q, k, v = mk(1, s, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
-            out = flash_prefill_op(q, k, v, q_offset=off)
-            same = flash_prefill_ref(q, k, v, q_offset=off)
-            sync(torch)
-            err = float((out.float() - same.float()).abs().max())
-            if dtype == torch.float32:
-                up_err, ok = err, err <= K4_FP32_TOL
-            else:
-                up = flash_prefill_ref(q.float(), k.float(), v.float(), q_offset=off)
-                d = (out.float() - up).abs()
-                up_err = float(d.max())
-                ok = err <= K4_BF16_TOL and bool((d <= up.abs() * 2.0 ** -8 + 1e-5).all())
-                del up, d
-            check(ok, f"K4 disagrees ({dtype}, {tag}): {err} vs plain, {up_err} vs upcast")
-            pairs = s * off + s * (s + 1) // 2
-            esz = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
-            key = "fp32" if dtype == torch.float32 else "bf16"
-            b4, b4_by = bound_ms(nbytes, 4 * hd * H * pairs, peaks, key)
-            t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v, q_offset=off), flush=flush)
-            t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, q_offset=off),
-                          reps=5, flush=flush)
-            t4l = time_ms(torch, _sdpa(torch, q, k, v, off), flush=flush)
-            plan = None
-            if dtype == torch.float32:      # the fp32 kernel's grid for this call
-                plan = launch_plan(1, s, t, H, KV, hd, True,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
-            emit("kernels", kernel="flash_prefill", case=tag, dtype=str(dtype), S=s, T=t,
-                 q_offset=off, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
-                 ms=t4, plain_ms=t4p, library_ms=t4l, bound_ms=b4, bound_by=b4_by,
-                 flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9,
-                 bound_share=b4 / t4, plan=plan)
+            row = _k4_case(torch, peaks, gen, flush, dtype, tag, s, off, H, KV, hd)
             if tag == "cold":
                 name = "flash_prefill" if dtype == torch.bfloat16 else "flash_prefill_fp32"
-                mains[name] = dict(shape=f"cold S=T={s} {key}, H {H} KV {KV} hd {hd}",
-                                   max_abs_err=err, ms=t4, plain_ms=t4p, library_ms=t4l,
-                                   bound_ms=b4, bound_by=b4_by)
-            del q, k, v, out, same
+                mains[name] = row
     # row independence: rows 1056.. of the cold call == the suffix call's rows
-    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
-        q, k, v = mk(1, 1456, 16, 128), mk(1, 1456, 8, 128), mk(1, 1456, 8, 128)
-        cold = flash_prefill_op(q, k, v)
-        identical = {}
-        for off in (1056, 1000, 1455):
-            identical[off] = bool(torch.equal(flash_prefill_op(q[:, off:], k, v, q_offset=off),
-                                              cold[:, off:]))
-        sync(torch)
-        emit("kernels", kernel="flash_prefill", case=f"suffix rows == cold rows ({name})",
-             T=1456, offsets_bit_identical=identical)
-        check(all(identical.values()),
-              f"K4 {name} suffix rows differ from its cold rows: {identical}")
-        del q, k, v, cold
+    for dtype in both:
+        _k4_rows_identical(torch, gen, dtype, 1456, 16, 8, 128, (1056, 1000, 1455))
     return mains
+
+
+def _k4_case(torch, peaks, gen, flush, dtype, tag, s, off, H, KV, hd) -> dict:
+    """One K4 call against its plain version (and, in bf16, the plain
+    version on the upcast values), with its times, bound and SDPA's time."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ops import launch_plan
+
+    t = s + off
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+    q, k, v = mk(1, s, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
+    out = flash_prefill_op(q, k, v, q_offset=off)
+    same = flash_prefill_ref(q, k, v, q_offset=off)
+    sync(torch)
+    err = float((out.float() - same.float()).abs().max())
+    if dtype == torch.float32:
+        up_err, ok = err, err <= K4_FP32_TOL
+    else:
+        up = flash_prefill_ref(q.float(), k.float(), v.float(), q_offset=off)
+        d = (out.float() - up).abs()
+        up_err = float(d.max())
+        ok = err <= K4_BF16_TOL and bool((d <= up.abs() * 2.0 ** -8 + 1e-5).all())
+        del up, d
+    check(ok, f"K4 disagrees ({dtype}, {tag}): {err} vs plain, {up_err} vs upcast")
+    pairs = s * off + s * (s + 1) // 2
+    esz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+    key = "fp32" if dtype == torch.float32 else "bf16"
+    b4, b4_by = bound_ms(nbytes, 4 * hd * H * pairs, peaks, key)
+    t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v, q_offset=off), flush=flush)
+    t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, q_offset=off),
+                  reps=5, flush=flush)
+    t4l = time_ms(torch, _sdpa(torch, q, k, v, off), flush=flush)
+    plan = None
+    if dtype == torch.float32:      # the fp32 kernel's grid for this call
+        plan = launch_plan(1, s, t, H, KV, hd, True,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    emit("kernels", kernel="flash_prefill", case=tag, dtype=str(dtype), S=s, T=t,
+         q_offset=off, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
+         ms=t4, plain_ms=t4p, library_ms=t4l, bound_ms=b4, bound_by=b4_by,
+         flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9,
+         bound_share=b4 / t4, plan=plan)
+    del q, k, v, out, same
+    return dict(shape=f"{tag} S={s} T={t} {key}, H {H} KV {KV} hd {hd}",
+                max_abs_err=err, ms=t4, plain_ms=t4p, library_ms=t4l,
+                bound_ms=b4, bound_by=b4_by)
+
+
+def _k4_rows_identical(torch, gen, dtype, t, H, KV, hd, offsets) -> None:
+    """Rows off.. of a cold K4 call == the same rows of a suffix call."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_op
+
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
+    q, k, v = mk(1, t, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
+    cold = flash_prefill_op(q, k, v)
+    identical = {}
+    for off in offsets:
+        identical[off] = bool(torch.equal(flash_prefill_op(q[:, off:], k, v, q_offset=off),
+                                          cold[:, off:]))
+    sync(torch)
+    emit("kernels", kernel="flash_prefill", case=f"suffix rows == cold rows ({name})",
+         T=t, heads=[H, KV, hd], offsets_bit_identical=identical)
+    check(all(identical.values()),
+          f"K4 {name} hd {hd}: suffix rows differ from its cold rows: {identical}")
 
 
 def _k5_cases(torch, peaks, gen, flush, L, bs, KV, hd) -> dict:
@@ -847,36 +906,32 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
     """The decode step at B=len(prompts) on their prefilled K/V, and one
     P->D transfer of the longest prompt, timed outside the cluster loop.
 
-    Step: median wall over 10 synchronized steps (the append rewrites the
-    same slots, so the state does not change) and a torch.profiler device
-    time split by kernel over 3 steps. Transfer: the K1 launch (CUDA events),
-    the device verify's wall and the host blake2b digests' wall, separately.
+    Step: see :func:`_step_profile` (the append rewrites the same slots, so
+    the state does not change). Transfer: the K1 launch (CUDA events), the
+    device verify's wall and the host blake2b digests' wall, separately.
     """
     from repro_torch.core.transfer import TransferPlanner
     from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import _next_pow2
     from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
 
-    kv = PagedKVCache(spec_for_model(cfg, 256), device=DEVICE)
-    lens, toks = [], []
-    for rid, p in enumerate(prompts):
-        logits, pre = T.prefill(params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE))
-        kv.bm.allocate(rid, len(p) + 1)
-        kv.write_prefill(rid, pre["k"][:, 0], pre["v"][:, 0], len(p))
-        lens.append(len(p))
-        toks.append(int(torch.argmax(logits[0])))
-    tables = kv.export_block_tables(list(range(len(prompts))))
-    b, w = len(prompts), _next_pow2(tables.shape[1])
-    bt = torch.zeros((_next_pow2(b), w), dtype=torch.int32)
-    bt[:b, :tables.shape[1]] = torch.from_numpy(tables)
-    bt[b:] = bt[0]
-    bt = bt.to(DEVICE)
-    tok = torch.tensor(toks + toks[:1] * (bt.shape[0] - b), dtype=torch.int32, device=DEVICE)
-    ln = torch.tensor(lens + lens[:1] * (bt.shape[0] - b), dtype=torch.int32, device=DEVICE)
+    kv, bt, tok, ln = _paged_state(torch, cfg, params, prompts, 1, 256)
+    lens = [len(p) for p in prompts]
+    out = {"step_batch": len(prompts), "step_lengths": lens}
+    out.update(_step_profile(torch, lambda: T.decode_step_paged(params, cfg, tok, kv.pool,
+                                                                bt, ln))[0])
+    # one P->D transfer of the longest prompt: kernel time vs verification
+    rid = max(range(len(prompts)), key=lambda i: lens[i])
+    dst = PagedKVCache(spec_for_model(cfg, 256), device=DEVICE)
+    dst_blocks = dst.bm.allocate(0, lens[rid] + 1)
+    plan = TransferPlanner(kv.spec).plan("flowkv", kv.bm.get(rid)[:len(dst_blocks)], dst_blocks)
+    out.update(transfer_tokens=lens[rid], **_transfer_split(torch, kv, dst, plan))
+    return out
 
-    def step():
-        return T.decode_step_paged(params, cfg, tok, kv.pool, bt, ln)
 
+def _step_profile(torch, step) -> tuple:
+    """A decode step's median wall over 10 synchronized calls (after 3 warm
+    ones) and its device time by kernel over 3 profiled calls, with K3's
+    time and share; returns (summary, device us by kernel over the 3)."""
     for _ in range(3):
         step()
     sync(torch)
@@ -886,30 +941,29 @@ def step_and_transfer_timing(torch, cfg, params, prompts) -> dict:
         step()
         sync(torch)
         walls.append(time.perf_counter() - t0)
-    out = {"step_batch": b, "step_lengths": lens, "step_wall_ms": statistics.median(walls) * 1e3}
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step()
-        sync(torch)
-        wall = time.perf_counter() - t0
-    by_kernel = _device_by_kernel(prof)
+    by_kernel, wall = _profiled(torch, step)
     total = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
     k3_us = sum(v for k, v in by_kernel.items() if "paged_decode" in k)   # every K3 kernel
-    out.update(step_device_ms=total / 3e3, step_profiled_wall_ms=wall / 3 * 1e3,
-               k3_ms=k3_us / 3e3, k3_share=k3_us / total if total else None,
-               step_device_busy_share=(total / 1e6) / wall if wall else None,
-               step_top_kernels_ms=[(k[:80], v / 3e3) for k, v in top])
+    return dict(step_wall_ms=statistics.median(walls) * 1e3, step_device_ms=total / 3e3,
+                step_profiled_wall_ms=wall / 3 * 1e3, k3_ms=k3_us / 3e3,
+                k3_share=k3_us / total if total else None,
+                step_device_busy_share=(total / 1e6) / wall if wall else None,
+                step_top_kernels_ms=[(k[:80], v / 3e3) for k, v in top]), by_kernel
 
-    # one P->D transfer of the longest prompt: kernel time vs verification
-    rid = max(range(len(prompts)), key=lambda i: lens[i])
-    dst = PagedKVCache(spec_for_model(cfg, 256), device=DEVICE)
-    dst_blocks = dst.bm.allocate(0, lens[rid] + 1)
-    plan = TransferPlanner(kv.spec).plan("flowkv", kv.bm.get(rid)[:len(dst_blocks)], dst_blocks)
-    out.update(transfer_tokens=lens[rid], **_transfer_split(torch, kv, dst, plan))
-    return out
+
+def _profiled(torch, fn, n: int = 3) -> tuple:
+    """Device microseconds by kernel over ``n`` calls of ``fn`` under
+    torch.profiler, and those calls' wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync(torch)
+        wall = time.perf_counter() - t0
+    return _device_by_kernel(prof), wall
 
 
 # ---------------------------------------------------------------------------
@@ -1516,6 +1570,461 @@ def phase_e2e_faults_tier(torch, env) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# e2e_moe_tp: MoE and tensor/expert-parallel serving (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_NEW_TOKENS = 8
+MOE_BLOCKS = 192                       # pool blocks a node: 576 MiB of fp32 K/V
+MOE_TP = ({0: 1, 1: 1}, {0: 2, 1: 2}, {0: 2, 1: 4})
+MOE_TIMED_TP = ({0: 1, 1: 1}, {0: 2, 1: 4})
+# The random weights of the gate: the port's init from SEED with wq / wk
+# scaled by sqrt(3)/8 and wv by 1/8. At the init's own scale (dense_init
+# reads the heads axis of wq / wk / wv as their fan-in) granite, which has no
+# qk-norm, attends with scores of std ~90: near one-hot softmaxes whose
+# near-ties amplify fp32 summation-order differences through 24 layers until
+# the same state decodes to other logits on the paged and the dense path
+# (tools/moe_conditioning_probe.py). Tempered to std ~4 the model stays
+# well conditioned while attention still dominates the residual stream, and
+# its greedy streams do not collapse to one repeated token.
+MOE_ATTN_SCALE = {"wq": 3 ** 0.5 / 8, "wk": 3 ** 0.5 / 8, "wv": 1 / 8}
+MOE_MIN_DISTINCT = 4                   # distinct tokens of 8 in every monolithic stream
+# max |delta logit| (fp32) on one state. A shard's narrower GEMMs may take
+# other cuBLAS algorithms, so the bar is not bit identity. Each limit sits
+# between the sound paths' readings and a planted fault's (shard 1's K3 or
+# K4 output rounded to bf16 at TP 2), which the phase also takes every run.
+MOE_STEP_TOL = 1e-3                    # a decode step: paged vs dense, TP 2 / 4 vs TP 1
+MOE_PREFILL_TOL = 2e-2                 # the sharded prefill of 1100 tokens vs unsharded
+
+
+def _tp_kernel_cases(torch, peaks, gen, flush) -> dict:
+    """The kernels at the shapes of e2e_moe_tp and of the MoE/VLM configs:
+    K1 over the fine (-1, hd) rows of a 1500-token granite-moe bf16 prompt
+    moved TP 2 -> 4 (four shard pairs, bit-exact against the plain version,
+    beside index_copy_ on the same rows); K3 at granite's heads as one shard
+    sees them at TP 1 / 2 / 4 (B=4, hd 64), fp32 and bf16; K4 cold at
+    granite's heads (S = T = 1500, hd 64) in both dtypes, bf16 at
+    llama4-scout's heads (40/8, hd 128, S = 1500) and llava-next's (56/8,
+    hd 128, its 2880 patches + 128 text tokens), and its suffix rows
+    bit-identical to its cold rows at hd 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layout import KVCacheSpec
+    from repro_torch.core.transfer import ShardedTransferEngine, ShardSpec, shard_pairs
+    from repro_torch.kernels.kv_gather import kv_transfer_fine, kv_transfer_ref
+
+    cfg = get_config(MOE_ARCH)
+    L, KV, hd, bs, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.block_size, cfg.num_heads
+    bf16 = torch.bfloat16
+    spec = KVCacheSpec(num_layers=L, num_blocks=MOE_BLOCKS, block_size=bs, num_kv_heads=KV,
+                       head_dim=hd, dtype=bf16)
+    n = spec.blocks_for_tokens(PROMPT_LENS[-1])
+    src_blocks = list(range(3, 3 + n))
+    dst_blocks = list(range(40, 40 + n // 2)) + list(range(120, 120 + n - n // 2))
+    s_shard, d_shard = ShardSpec(2, KV), ShardSpec(4, KV)
+    engine = ShardedTransferEngine(spec, spec, s_shard, d_shard)
+    plan = engine.plan("flowkv", src_blocks, dst_blocks)
+    table = plan.to_descriptors()
+
+    def pools(tp):
+        return [torch.randn((MOE_BLOCKS, L, 2, bs * (KV // tp) * hd), generator=gen,
+                            device=DEVICE).to(bf16) for _ in range(tp)]
+
+    src, dst0 = pools(2), pools(4)
+    pairs = []
+    for pair in shard_pairs(s_shard, d_shard):
+        pairs.append((pair[0], pair[1], *engine.pair_rows(table, pair, DEVICE)))
+    rows_n = sum(int(sp.numel()) for _, _, sp, _ in pairs)
+    sflat = [p.view(-1, hd) for p in src]
+
+    def kernel(dsts):
+        for s, d, sp, dp in pairs:
+            kv_transfer_fine(src[s], dsts[d], sp, dp, hd)
+
+    def plain(dsts):
+        for s, d, sp, dp in pairs:
+            kv_transfer_ref(sflat[s], dsts[d].view(-1, hd), sp, dp)
+
+    dk, dp_, de = ([p.clone() for p in dst0] for _ in range(3))
+    kernel(dk)
+    plain(dp_)
+    engine.execute(plan, src, de)
+    sync(torch)
+    exact = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                and torch.equal(a.view(torch.int16), c.view(torch.int16))
+                for a, b, c in zip(dk, dp_, de))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(dk, dp_))
+    kept = True
+    for d in range(4):                     # rows no pair wrote keep their bytes
+        mask = torch.ones(dk[d].numel() // hd, dtype=torch.bool, device=DEVICE)
+        for _, dd, _, dp in pairs:
+            if dd == d:
+                mask[dp.long()] = False
+        kept = kept and bool(torch.equal(dk[d].view(-1, hd)[mask].view(torch.int16),
+                                         dst0[d].view(-1, hd)[mask].view(torch.int16)))
+    check(exact and kept, f"K1 fine rows not bit-exact (exact={exact}, untouched kept={kept})")
+    dflat = [p.view(-1, hd) for p in dk]
+    lib_idx = [(s, d, sp.long(), dp.long()) for s, d, sp, dp in pairs]
+
+    def library():
+        for s, d, sp, dp in lib_idx:
+            dflat[d].index_copy_(0, dp, sflat[s].index_select(0, sp))
+
+    t_k = time_ms(torch, lambda: kernel(dk), flush=flush)
+    t_p = time_ms(torch, lambda: plain(dp_), flush=flush)
+    t_l = time_ms(torch, library, flush=flush)
+    t_d = device_only_ms(torch, lambda: kernel(dk), "kv_transfer_kernel", flush=flush)
+    t_plan = time_ms(torch, lambda: engine.execute(plan, src, de), reps=10, flush=flush)
+    row_bytes = hd * 2
+    moved = 2 * rows_n * row_bytes + 2 * rows_n * 4
+    b1, b1_by = bound_ms(moved, 0, peaks, "bf16")
+    emit("kernels", kernel="kv_transfer_fine", case="TP 2 -> 4, 1500 tokens granite-moe bf16",
+         pairs=len(pairs), rows=rows_n, row_bytes=row_bytes, bit_exact=exact,
+         untouched_kept=kept, max_abs_err=err, ms=t_k, device_only_ms=t_d, plain_ms=t_p,
+         library_ms=t_l, plan_with_tables_ms=t_plan, bound_ms=b1, bound_by=b1_by,
+         bound_share=b1 / t_k, achieved_gbps=moved / t_k / 1e6, library_over_kernel=t_l / t_k)
+    rows = {"kv_transfer_fine": dict(
+        shape=f"TP 2 -> 4 fine rows of a {PROMPT_LENS[-1]}-token prompt: {len(pairs)} pairs, "
+              f"{rows_n} rows x {row_bytes} B bf16", max_abs_err=err, ms=t_k,
+        plain_ms=t_p, library_ms=t_l, bound_ms=b1, bound_by=b1_by)}
+    del src, dst0, dk, dp_, de, sflat, dflat, lib_idx, pairs
+
+    # -- K3 at a shard's heads: granite at TP 1 / 2 / 4, the decode step's B=4
+    for dtype in (torch.float32, bf16):
+        for tp in (1, 2, 4):
+            pspec = KVCacheSpec(num_layers=L, num_blocks=256, block_size=bs,
+                                num_kv_heads=KV // tp, head_dim=hd, dtype=dtype)
+            kpool = torch.randn(pspec.shape, generator=gen, device=DEVICE).to(dtype)
+            _k3_case(torch, peaks, gen, flush, kpool, pspec, L * 3 // 5, H // tp, 4,
+                     PROMPT_LENS, 64, tag=f"granite-moe heads at TP {tp}")
+            del kpool
+    # -- K4 at granite's heads (hd 64) and at the MoE/VLM configs' G = 5 / 7
+    for dtype in (torch.float32, bf16):
+        _k4_case(torch, peaks, gen, flush, dtype, "cold granite-moe heads", 1500, 0, H, KV, hd)
+    _k4_case(torch, peaks, gen, flush, bf16, "cold llama4-scout heads (G 5)", 1500, 0, 40, 8, 128)
+    _k4_case(torch, peaks, gen, flush, bf16, "cold llava-next heads (G 7), 2880 patches + 128",
+             2880 + 128, 0, 56, 8, 128)
+    for dtype in (torch.float32, bf16):
+        _k4_rows_identical(torch, gen, dtype, 1500, H, KV, hd, (1056, 1000, 1499))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_serve(torch, cfg, params, prompts, tp_degrees, max_batch_tokens):
+    """Serve the prompts on 1P+1D at the given TP degrees through
+    FlowKVClient; returns (client, handles, launch counts, wall seconds)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+
+    client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1, num_blocks=MOE_BLOCKS,
+                          max_batch_tokens=max_batch_tokens, tp_degrees=dict(tp_degrees),
+                          device=DEVICE)
+    sync(torch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [client.submit(p, SamplingParams(max_new_tokens=MOE_NEW_TOKENS)) for p in prompts]
+    client.drain(max_cycles=500)
+    sync(torch)
+    return client, handles, launch_counts(), time.perf_counter() - t0
+
+
+def _paged_state(torch, cfg, params, prompts, tp, num_blocks=MOE_BLOCKS):
+    """The prompts prefilled (unsharded) into a pool of ``tp`` shards; the
+    B = len(prompts) decode step's inputs, padded as the engine pads them."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import _next_pow2
+    from repro_torch.serving.kv_cache import PagedKVCache, ShardedKVCache, spec_for_model
+
+    spec = spec_for_model(cfg, num_blocks)
+    kv = PagedKVCache(spec, device=DEVICE) if tp == 1 else \
+        ShardedKVCache(spec, tp, device=DEVICE)
+    lens, toks = [], []
+    for rid, p in enumerate(prompts):
+        logits, pre = T.prefill(params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE))
+        kv.bm.allocate(rid, len(p) + 1)
+        kv.write_prefill(rid, pre["k"][:, 0], pre["v"][:, 0], len(p))
+        lens.append(len(p))
+        toks.append(int(torch.argmax(logits[0])))
+    tables = kv.export_block_tables(list(range(len(prompts))))
+    b, w = len(prompts), _next_pow2(tables.shape[1])
+    bt = torch.zeros((_next_pow2(b), w), dtype=torch.int32)
+    bt[:b, :tables.shape[1]] = torch.from_numpy(tables)
+    bt[b:] = bt[0]
+    pad = bt.shape[0] - b
+    return (kv, bt.to(DEVICE), torch.tensor(toks + toks[:1] * pad, dtype=torch.int32,
+                                            device=DEVICE),
+            torch.tensor(lens + lens[:1] * pad, dtype=torch.int32, device=DEVICE))
+
+
+def _step_fn(torch, cfg, params, kv, bt, tok, ln, tp):
+    """One decode step on ``kv``: the unsharded step, or the sharded one on
+    the engine's shard views and merged combine weights."""
+    from repro_torch.distributed import tp as tp_mod
+    from repro_torch.models import transformer as T
+
+    if tp == 1:
+        return lambda: T.decode_step_paged(params, cfg, tok, kv.pool, bt, ln)[0]
+    shards = tp_mod.shard_params(params, cfg, tp)
+    merged = tp_mod.merged_combine(shards, cfg)
+    return lambda: tp_mod.sharded_decode_step_paged(shards, cfg, tok, kv.pools, bt, ln,
+                                                    merged)[0]
+
+
+def _moe_params(torch, cfg):
+    """granite-moe's random weights: the port's init from SEED, the
+    attention tempered by MOE_ATTN_SCALE."""
+    from repro_torch.models.api import get_model
+
+    params = get_model(cfg).init(SEED, DEVICE)
+    for name, factor in MOE_ATTN_SCALE.items():
+        params["layers"][name].mul_(factor)
+    return params
+
+
+def _monolithic(torch, cfg, params, prompts) -> list:
+    """Each prompt's MOE_NEW_TOKENS tokens from greedy_generate (dense cache)."""
+    from repro_torch.models import transformer as T
+
+    return [[int(x) for x in T.greedy_generate(
+        params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE), MOE_NEW_TOKENS)[0].cpu()]
+        for p in prompts]
+
+
+def _first_steps(torch, cfg, params, prompts, tps) -> dict:
+    """The first B = len(prompts) decode step's logits on one prefilled
+    state: the paged step at each TP degree of ``tps``, and "dense", the
+    monolithic decode_step on a dense cache of the same prefills."""
+    from repro_torch.models import transformer as T
+
+    b = len(prompts)
+    steps = {}
+    for tp in tps:
+        kv, bt, tok, ln = _paged_state(torch, cfg, params, prompts, tp)
+        steps[tp] = _step_fn(torch, cfg, params, kv, bt, tok, ln, tp)()[:b]
+        del kv
+    lens = [len(p) for p in prompts]
+    cache = T.init_cache(cfg, b, max(lens) + 1, device=DEVICE)
+    for i, p in enumerate(prompts):
+        pre = T.prefill(params, cfg, torch.tensor([p], dtype=torch.int32, device=DEVICE))[1]
+        cache["k"][:, i:i + 1, :len(p)] = pre["k"]
+        cache["v"][:, i:i + 1, :len(p)] = pre["v"]
+    cache["length"] = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    steps["dense"] = T.decode_step(params, cfg, tok[:b], cache)[0]
+    return steps
+
+
+@contextlib.contextmanager
+def _planted_bf16(torch, module, name: str, tp: int, shard: int = 1):
+    """A planted fault: while the block runs, shard ``shard``'s output of
+    the kernel wrapper ``module.name`` is rounded to bf16. A sharded layer
+    calls its shards in order, so that is every tp-th call from the
+    ``shard``-th."""
+    orig = getattr(module, name)
+    calls = [0]
+
+    def planted(*args, **kw):
+        out = orig(*args, **kw)
+        calls[0] += 1
+        if (calls[0] - 1) % tp != shard:
+            return out
+        first = out[0] if isinstance(out, tuple) else out
+        bad = first.to(torch.bfloat16).to(first.dtype)
+        return (bad, *out[1:]) if isinstance(out, tuple) else bad
+
+    setattr(module, name, planted)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _tp_logits(torch, cfg, params, prompts) -> dict:
+    """fp32, on one prefilled state: the first B=4 decode step paged at TP 1
+    against the dense decode_step, and paged at TP 2 / 4 against TP 1; the
+    sharded prefill of the 1100-token prompt (K4 per shard) at TP 2 / 4
+    against the unsharded one. Each holds max |delta logit| within its
+    limit, and the planted fault at TP 2 must read above it."""
+    import repro_torch.kernels.flash_prefill as k4
+    import repro_torch.kernels.paged_attention as k3
+    from repro_torch.distributed import tp as tp_mod
+    from repro_torch.models import transformer as T
+
+    out = {}
+
+    def hold(name, got, want, limit, planted=False):
+        delta = float((got - want).abs().max())
+        out[name] = dict(max_abs_delta=delta, limit=limit,
+                         bit_identical=bool(torch.equal(got, want)),
+                         argmax_equal=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+        if planted:
+            check(delta > limit, f"e2e_moe_tp: the planted fault {name} reads {delta}, "
+                                 f"within the limit {limit}")
+        else:
+            check(delta <= limit, f"e2e_moe_tp: {name} logits off by {delta} (limit {limit})")
+
+    steps = _first_steps(torch, cfg, params, prompts, (1, 2, 4))
+    hold("tp1_paged_vs_dense_step", steps[1], steps["dense"], MOE_STEP_TOL)
+    for tp in (2, 4):
+        hold(f"tp{tp}_first_decode_step", steps[tp], steps[1], MOE_STEP_TOL)
+    kv, bt, tok, ln = _paged_state(torch, cfg, params, prompts, 2)
+    with _planted_bf16(torch, k3, "paged_decode_attention", 2):
+        bad = _step_fn(torch, cfg, params, kv, bt, tok, ln, 2)()[:len(prompts)]
+    del kv
+    hold("planted_k3_bf16_tp2_step", bad, steps[1], MOE_STEP_TOL, planted=True)
+    p = torch.tensor([prompts[2]], dtype=torch.int32, device=DEVICE)
+    want = T.prefill(params, cfg, p)[0]
+    for tp in (2, 4):
+        got = tp_mod.sharded_prefill(tp_mod.shard_params(params, cfg, tp), cfg, p)[0]
+        hold(f"tp{tp}_prefill_1100", got, want, MOE_PREFILL_TOL)
+    with _planted_bf16(torch, k4, "flash_prefill_op", 2):
+        bad = tp_mod.sharded_prefill(tp_mod.shard_params(params, cfg, 2), cfg, p)[0]
+    hold("planted_k4_bf16_tp2_prefill_1100", bad, want, MOE_PREFILL_TOL, planted=True)
+    return out
+
+
+def _moe_step_timing(torch, cfg, params, prompts, tp, peaks) -> dict:
+    """The bf16 decode step at B=4 on a pool of ``tp`` shards: median wall of
+    10 synchronized steps, device time by kernel over 3 profiled steps, K3's
+    share, and the MoE FFNs' device time (the 24 layers' dense-dispatch
+    experts on the step's shape, profiled alone) against the floor of
+    reading every expert weight once."""
+    from repro_torch.distributed import tp as tp_mod
+    from repro_torch.models import transformer as T
+
+    kv, bt, tok, ln = _paged_state(torch, cfg, params, prompts, tp)
+    out, by_kernel = _step_profile(torch, _step_fn(torch, cfg, params, kv, bt, tok, ln, tp))
+    total = sum(by_kernel.values())
+    x = torch.randn((bt.shape[0], 1, cfg.d_model), device=DEVICE).to(cfg.dtype)
+    if tp == 1:
+        lps = [T.layer_params(params, i) for i in range(cfg.num_layers)]
+        ffn = lambda: [T._ffn(lp, x, cfg) for lp in lps]  # noqa: E731
+    else:
+        shards = tp_mod.shard_params(params, cfg, tp)
+        merged = tp_mod.merged_combine(shards, cfg)
+        layers = [tp_mod._layer(shards, merged, i) for i in range(cfg.num_layers)]
+        ffn = lambda: [tp_mod._sharded_ffn(lps, mi, x, cfg) for lps, mi in layers]  # noqa: E731
+    ffn()
+    sync(torch)
+    moe_us = sum(_profiled(torch, ffn)[0].values())
+    weight_bytes = (cfg.num_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff
+                    * cfg.dtype.itemsize)
+    floor_ms, _ = bound_ms(weight_bytes, 0, peaks, "bf16")
+    del kv
+    return dict(out, tp=tp, step_batch=len(prompts), k3_launches_per_step=cfg.num_layers * tp,
+                moe_ffn_device_ms=moe_us / 3e3, moe_share=moe_us / total if total else None,
+                expert_weight_bytes=weight_bytes, expert_weight_read_floor_ms=floor_ms)
+
+
+def phase_e2e_moe_tp(torch, env) -> dict:
+    """granite-moe-1b-a400m at full width and depth, served 1P+1D at TP 1,
+    2 -> 2 and 2 -> 4 in fp32 (the token gate) and at TP 1 and 2 -> 4 in its
+    bf16 (the timing run). Returns the fp32 2 -> 4 run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import sharded_transfer_calls
+    from repro_torch.models import transformer as T
+
+    tag = "e2e_moe_tp"
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype=torch.float32)
+    prompts = _prompts(cfg, PROMPT_LENS, SEED)
+    params = _moe_params(torch, cfg)
+    L = cfg.num_layers
+    mono = _monolithic(torch, cfg, params, prompts)
+    distinct = [len(set(s)) for s in mono]
+    check(min(distinct) >= MOE_MIN_DISTINCT,
+          f"{tag} fp32: the monolithic streams hold {distinct} distinct tokens of "
+          f"{MOE_NEW_TOKENS}: a token gate on them tests little")
+    data = dict(model=cfg.name, layers=L, d_model=cfg.d_model, experts=cfg.num_experts,
+                top_k=cfg.top_k, heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+                params=cfg.num_params(), prompt_lens=PROMPT_LENS, new_tokens=MOE_NEW_TOKENS,
+                blocks=MOE_BLOCKS, attn_scale=MOE_ATTN_SCALE, distinct_tokens=distinct,
+                fp32={})
+    fine_counts = None
+    for tpd in MOE_TP:
+        key = f"{tpd[0]}->{tpd[1]}"
+        client, handles, counts, wall = _moe_serve(torch, cfg, params, prompts, tpd, 2048)
+        s = client.stats()
+        outs = [list(map(int, h.request.output_tokens)) for h in handles]
+        xfers = [t for t in client.cluster.transfers if t.kind == "kv"]
+        moved = sum(t.num_dispatches for t in xfers)
+        expected = sharded_transfer_calls(tpd[0], tpd[1])
+        sharded = tpd[0] > 1 or tpd[1] > 1
+        check(outs == mono, f"{tag} fp32 TP {key}: tokens differ from monolithic")
+        check(s["finished"] == len(prompts), f"{tag} fp32 TP {key}: {s['finished']} finished")
+        check(len(xfers) == len(prompts) and all(t.status == "ok" and t.retries == 0
+                                                 for t in xfers),
+              f"{tag} fp32 TP {key}: transfers {[(t.status, t.retries) for t in xfers]} "
+              "(a failed device verify retries)")
+        check(s["mean_transfer_dispatches"] == expected,
+              f"{tag} fp32 TP {key}: {s['mean_transfer_dispatches']} dispatches a transfer "
+              f"!= {expected}")
+        check(s["decode_dispatches"] == s["decode_steps"] > 0,
+              f"{tag} fp32 TP {key}: decode dispatches {s['decode_dispatches']} != steps")
+        check(counts["paged_decode_attention"] == s["decode_steps"] * L * tpd[1],
+              f"{tag} fp32 TP {key}: {counts['paged_decode_attention']} K3 launches for "
+              f"{s['decode_steps']} steps of {L} layers x {tpd[1]} shards")
+        k1_moves = counts["kv_transfer_fine"] if sharded else counts["kv_transfer"] - \
+            s["decode_steps"]
+        check(k1_moves == moved and counts["kv_transfer"] >= s["decode_steps"] * tpd[1],
+              f"{tag} fp32 TP {key}: K1 launches {counts} for {moved} transfer dispatches")
+        check(counts["flash_prefill"] > 0 and counts["kv_scatter"] > 0,
+              f"{tag} fp32 TP {key}: K4 / K5b not launched: {counts}")
+        check(s["leaked_blocks"] == 0.0 and client.cluster.audit_blocks() == 0,
+              f"{tag} fp32 TP {key}: leaked blocks")
+        data["fp32"][key] = dict(
+            serve_s=wall, launches=counts, transfers=s["transfers"],
+            mean_transfer_dispatches=s["mean_transfer_dispatches"],
+            shard_dispatches=s["shard_dispatches"], sharded_nodes=s["sharded_nodes"],
+            decode_steps=s["decode_steps"], tokens_equal_monolithic=True,
+            ttft_wall_s=[h.request.first_token_wall - h.request.arrival_wall for h in handles],
+            transfer_wall_s=[h.request.transfer_end_wall - h.request.transfer_start_wall
+                             for h in handles])
+        if tpd == MOE_TP[-1]:
+            fine_counts = counts
+        del client, handles
+        gc.collect()
+    data["tp_logits_fp32"] = _tp_logits(torch, cfg, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(MOE_ARCH)                      # its own bf16
+    params = _moe_params(torch, cfg)
+    first = [int(torch.argmax(T.prefill(params, cfg, torch.tensor(
+        [p], dtype=torch.int32, device=DEVICE))[0][0])) for p in prompts]
+    data["bf16"] = {}
+    for tpd in MOE_TIMED_TP:
+        key = f"{tpd[0]}->{tpd[1]}"
+        client, handles, counts, wall = _moe_serve(torch, cfg, params, prompts, tpd, 4096)
+        s = client.stats()
+        outs = [list(map(int, h.request.output_tokens)) for h in handles]
+        check(s["finished"] == len(prompts) and all(len(o) == MOE_NEW_TOKENS for o in outs),
+              f"{tag} bf16 TP {key}: {s['finished']} finished")
+        check([o[0] for o in outs] == first,
+              f"{tag} bf16 TP {key}: first tokens differ from monolithic prefill")
+        check(s["leaked_blocks"] == 0.0, f"{tag} bf16 TP {key}: leaked blocks")
+        data["bf16"][key] = dict(
+            serve_s=wall, launches=counts,
+            mean_transfer_dispatches=s["mean_transfer_dispatches"],
+            decode_steps=s["decode_steps"], first_tokens_equal=True,
+            timing=[{"prompt_len": r.prompt_len,
+                     "ttft_wall_s": r.first_token_wall - r.arrival_wall,
+                     "transfer_wall_s": r.transfer_end_wall - r.transfer_start_wall}
+                    for r in (h.request for h in handles)],
+            step=_moe_step_timing(torch, cfg, params, prompts, tpd[1], env["peaks"]))
+        del client, handles
+        gc.collect()
+    data["bf16_cold_prefill_profile"] = profile_cold_prefill(torch, cfg, params, prompts[-1])
+    check(data["bf16_cold_prefill_profile"]["k4_ms"] > 0,
+          f"{tag}: the cold prefill of {PROMPT_LENS[-1]} tokens launched no K4")
+    data["seconds"] = time.perf_counter() - t_phase
+    emit(tag, **data)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fine_counts
+
+
+# ---------------------------------------------------------------------------
 # sim_calibrate: the H100 profile fitted from the port's prefill; sim = real
 # ---------------------------------------------------------------------------
 SIM_GAP_S = 1e9        # sim seconds between arrivals: at 1e6 FLOP/s one prompt prices ~1e7 s
@@ -1727,6 +2236,7 @@ def main() -> int:
     decode_counts = phase_e2e(torch, torch.bfloat16, env)
     prefill_counts = phase_e2e_prefix(torch, env)
     tier_counts, host_route = phase_e2e_faults_tier(torch, env)
+    fine_counts = phase_e2e_moe_tp(torch, env)
     phase_sim_calibrate(torch, env)
     promote = host_route["promote"]
     rows["kv_transfer_host"] = dict(
@@ -1753,6 +2263,8 @@ def main() -> int:
                        "src/repro/kernels/kv_gather/kv_scatter.py:36", prefill_counts),
         "kv_transfer_host": ("src/repro_torch/csrc/kv_transfer.cu",
                              "src/repro/kernels/kv_gather/kv_transfer.py:57", tier_counts),
+        "kv_transfer_fine": ("src/repro_torch/csrc/kv_transfer.cu",
+                             "src/repro/kernels/kv_gather/kv_transfer.py:57", fine_counts),
     }
     kernels = []
     for name, (source, rep, counts) in replaces.items():

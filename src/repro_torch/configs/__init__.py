@@ -1,7 +1,8 @@
 """Config registry of the PyTorch port (reference: ``repro/configs``).
 
-Only the dense family is ported so far; every other arch id resolves to a
-``NotImplementedError`` that names the ROADMAP item that brings its family.
+The dense, MoE and VLM families are ported; the state families' arch ids
+resolve to a ``NotImplementedError`` that names the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -10,12 +11,15 @@ from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
-# arch id -> module name (dense family, ported)
+# arch id -> module name (ported)
 _REGISTRY: Dict[str, str] = {
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "minitron-8b": "minitron_8b",
     "gemma-2b": "gemma_2b",
     "stablelm-12b": "stablelm_12b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "llava-next-34b": "llava_next_34b",
     # the paper's own measurement models (Tables 1-3)
     "llama31-8b": "llama31_8b",
     "llama31-70b": "llama31_70b",
@@ -23,12 +27,9 @@ _REGISTRY: Dict[str, str] = {
 
 # arch id -> the ROADMAP.md queue-1 item that ports its family
 _NOT_PORTED: Dict[str, str] = {
-    "granite-moe-1b-a400m": "item 9 (MoE and TP/EP emulation)",
-    "llama4-scout-17b-a16e": "item 9 (MoE and TP/EP emulation)",
     "mamba2-370m": "item 11 (state families)",
     "recurrentgemma-2b": "item 11 (state families)",
     "seamless-m4t-large-v2": "item 11 (state families)",
-    "llava-next-34b": "item 9 (vlm frontend rides the MoE/TP slice)",
 }
 
 ALL_ARCHS: List[str] = list(_REGISTRY)

@@ -74,7 +74,7 @@ from repro_torch.core import layout as L
 from repro_torch.core.alignment import AlignmentResult, align
 from repro_torch.core.costmodel import TransportProfile
 from repro_torch.core.segments import Segment, blocks_to_segments
-from repro_torch.kernels.kv_gather import kv_transfer
+from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_fine
 
 Schedule = Literal["layerwise", "blockwise", "flowkv"]
 
@@ -137,6 +137,44 @@ def shard_pairs(src: ShardSpec, dst: ShardSpec
             if lo < hi:
                 out.append((s, d, lo, hi))
     return out
+
+
+def shard_slice_spec(spec: L.KVCacheSpec, shard: ShardSpec) -> L.KVCacheSpec:
+    """The per-shard pool spec: same blocks/layers, only its head slice."""
+    if spec.num_kv_heads != shard.num_kv_heads:
+        raise ValueError(
+            f"spec has {spec.num_kv_heads} kv-heads, shard topology expects "
+            f"{shard.num_kv_heads}")
+    return dataclasses.replace(spec, num_kv_heads=shard.heads_per_shard)
+
+
+def fine_page_rows(coarse_pages: np.ndarray, block_size: int,
+                   local_heads: int, head_lo: int, head_hi: int) -> np.ndarray:
+    """Rows of a shard pool's fine ``(-1, head_dim)`` view covered by a
+    head-range slice of the given coarse pages.
+
+    ``coarse_pages`` are flat page ids under the shard's per-shard spec
+    (``DescriptorTable.page_ids``); each coarse page is ``block_size *
+    local_heads`` fine rows, laid out slot-major then head-minor, so the row
+    for (page p, slot t, local head h) is ``(p*block_size + t)*local_heads
+    + h``. Restricting h to ``[head_lo, head_hi)`` (LOCAL indices) selects
+    exactly one shard pair's head intersection — the rows one K1 launch
+    moves.
+    """
+    return _fine_rows_on(torch.device("cpu"), coarse_pages, block_size, local_heads,
+                         head_lo, head_hi).numpy()
+
+
+def _fine_rows_on(device, coarse_pages: np.ndarray, block_size: int, local_heads: int,
+                  head_lo: int, head_hi: int) -> torch.Tensor:
+    """:func:`fine_page_rows` as an int32 tensor expanded on ``device``:
+    only the coarse page ids cross from the host, not the
+    block_size * heads times longer row table."""
+    p = torch.as_tensor(coarse_pages).to(device).long()
+    t = torch.arange(block_size, device=device)
+    h = torch.arange(head_lo, head_hi, device=device)
+    rows = (p[:, None, None] * block_size + t[None, :, None]) * local_heads + h[None, None, :]
+    return rows.reshape(-1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -434,8 +472,6 @@ class TransferPlanner:
 # process increments this exactly once (tests and benchmarks read it).
 _TOTAL_DISPATCHES = 0
 
-_SHARDED = "tensor-parallel pools are not ported yet: see ROADMAP.md item 9"
-
 
 def total_dispatches() -> int:
     return _TOTAL_DISPATCHES
@@ -472,6 +508,10 @@ class TransferEngine:
         self.planner = TransferPlanner(src_spec)
         self.num_dispatches = 0
 
+    def plan(self, schedule: Schedule, src_blocks: Sequence[int],
+             dst_blocks: Sequence[int]) -> TransferPlan:
+        return self.planner.plan(schedule, src_blocks, dst_blocks)
+
     def execute(self, plan: TransferPlan, src_cache: torch.Tensor,
                 dst_cache: torch.Tensor) -> torch.Tensor:
         """Apply a plan in one launch, in place; returns ``dst_cache``."""
@@ -490,10 +530,89 @@ class TransferEngine:
 
 
 class ShardedTransferEngine:
-    """Per-shard-pair transfer between kv-head-sharded pools (not ported)."""
+    """Executes plans between two kv-head-sharded pools, possibly of
+    DIFFERENT tensor-parallel degrees (e.g. TP=2 prefill -> TP=4 decode).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    Each side's pool is a list of per-shard tensors (shard ``s`` holds its
+    per-shard spec's FLOWKV pool — same blocks and layers, only its
+    contiguous kv-head slice). A plan lowers to exactly ONE K1 launch
+    (``kv_transfer_fine``) per overlapping (src_shard, dst_shard) pair: the
+    pair's coarse descriptor
+    pages expand to fine ``(-1, head_dim)`` rows restricted to the pair's
+    head intersection. head_dim is degree-invariant, so the fine rows match
+    on both sides for ANY (tp_src, tp_dst); per-pair bytes sum exactly to the
+    unsharded plan's bytes. The dst pools are updated in place.
+    """
+
+    def __init__(self, src_spec: L.KVCacheSpec, dst_spec: L.KVCacheSpec,
+                 src_shard: ShardSpec, dst_shard: ShardSpec):
+        if src_spec.head_dim != dst_spec.head_dim:
+            raise ValueError("src/dst pools must agree on head_dim")
+        if src_spec.block_size != dst_spec.block_size:
+            raise ValueError("src/dst pools must agree on block_size")
+        if src_spec.num_layers != dst_spec.num_layers:
+            raise ValueError("src/dst pools must agree on layer count")
+        if src_spec.num_kv_heads != dst_spec.num_kv_heads:
+            raise ValueError("src/dst pools must cover the same kv-heads")
+        self.src_spec = src_spec
+        self.dst_spec = dst_spec
+        self.src_shard = src_shard
+        self.dst_shard = dst_shard
+        self.planner = TransferPlanner(src_spec)
+        self.num_dispatches = 0
+
+    def plan(self, schedule: Schedule, src_blocks: Sequence[int],
+             dst_blocks: Sequence[int]) -> TransferPlan:
+        """A full-pool plan stamped with both sides' shard topology."""
+        plan = self.planner.plan(schedule, src_blocks, dst_blocks)
+        return dataclasses.replace(plan, src_shard=self.src_shard,
+                                   dst_shard=self.dst_shard)
+
+    def pair_rows(self, table: DescriptorTable, pair: Tuple[int, int, int, int],
+                  device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+        """One pair's fine rows on each side (the rows its launch moves), as
+        int32 tensors on ``device``."""
+        dev = torch.device(device)
+        return _pair_rows(table, pair, self.src_spec, self.src_shard,
+                          self.dst_spec, self.dst_shard, (dev, dev))
+
+    def execute(self, plan: TransferPlan, src_pools: Sequence[torch.Tensor],
+                dst_pools: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Apply a plan pairwise, one K1 launch per pair, in place on the dst
+        pools; returns them."""
+        global _TOTAL_DISPATCHES
+        table = plan.to_descriptors()
+        out = list(dst_pools)
+        if len(table) == 0:
+            return out
+        hd = self.src_spec.head_dim
+        for pair in shard_pairs(self.src_shard, self.dst_shard):
+            s, d, _, _ = pair
+            dev = out[d].device
+            src_rows, dst_rows = _pair_rows(table, pair, self.src_spec, self.src_shard,
+                                            self.dst_spec, self.dst_shard, (dev, dev))
+            self.num_dispatches += 1
+            _TOTAL_DISPATCHES += 1
+            kv_transfer_fine(src_pools[s], out[d], src_rows, dst_rows, hd)
+        return out
+
+
+def _pair_rows(table: DescriptorTable, pair: Tuple[int, int, int, int],
+               src_spec: L.KVCacheSpec, src_shard: ShardSpec,
+               dst_spec: L.KVCacheSpec, dst_shard: ShardSpec, devices
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pair's fine rows on each side, int32 tensors built on
+    ``devices`` (src's, dst's)."""
+    s, d, lo, hi = pair
+
+    def rows(spec, shard, idx, side, dev):
+        sspec = shard_slice_spec(spec, shard)
+        first = shard.head_range(idx)[0]
+        return _fine_rows_on(dev, table.page_ids(sspec, side), spec.block_size,
+                             sspec.num_kv_heads, lo - first, hi - first)
+
+    return (rows(src_spec, src_shard, s, "src", devices[0]),
+            rows(dst_spec, dst_shard, d, "dst", devices[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -560,19 +679,90 @@ def verify_transfer(plan: TransferPlan, src_spec: L.KVCacheSpec,
                        _page_ints(dst_pool, dst_spec, table.page_ids(dst_spec, "dst")))
 
 
+def verify_sharded_transfer(plan: TransferPlan, src_spec: L.KVCacheSpec,
+                            src_pools: Sequence[torch.Tensor],
+                            dst_spec: L.KVCacheSpec,
+                            dst_pools: Sequence[torch.Tensor]) -> bool:
+    """Shard-aware twin of :func:`verify_transfer`.
+
+    For each overlapping (src_shard, dst_shard) pair, gathers the pair's
+    fine ``(-1, head_dim)`` rows — exactly the rows its launch moved — on
+    the pools' device and compares them as same-width integers: the
+    reference's per-pair blake2b verdict, with no page copied to the host.
+    The plan must carry shard topology; pools are per-shard lists.
+    """
+    table = plan.to_descriptors()
+    if len(table) == 0:
+        return True
+    if not plan.sharded:
+        raise ValueError("plan carries no shard topology; use verify_transfer")
+    heads = (plan.src_shard or plan.dst_shard).num_kv_heads
+    src_shard = plan.src_shard or ShardSpec(1, heads)
+    dst_shard = plan.dst_shard or ShardSpec(1, heads)
+    hd = src_spec.head_dim
+
+    def ints(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        flat = pool.reshape(-1, hd).view(_INT_VIEW[pool.element_size()])
+        return flat.index_select(0, rows.long())
+
+    for pair in shard_pairs(src_shard, dst_shard):
+        s, d, _, _ = pair
+        if src_pools[s].element_size() != dst_pools[d].element_size():
+            return False
+        src_rows, dst_rows = _pair_rows(table, pair, src_spec, src_shard, dst_spec,
+                                        dst_shard, (src_pools[s].device, dst_pools[d].device))
+        if not torch.equal(ints(src_pools[s], src_rows), ints(dst_pools[d], dst_rows)):
+            return False
+    return True
+
+
+def _pools_of(kv) -> List[torch.Tensor]:
+    """Per-shard pool list of a paged cache port (tp=1 -> one-entry list)."""
+    pools = getattr(kv, "pools", None)
+    return list(pools) if pools is not None else [kv.pool]
+
+
+def pool_transfer_engine(src_kv, dst_kv):
+    """The transfer engine matching two pool ports' shard topology.
+
+    Both unsharded stay on :class:`TransferEngine` (whole-payload pages, one
+    launch per plan); any sharded side lowers through
+    :class:`ShardedTransferEngine` (one launch per overlapping shard pair).
+    Ports expose ``spec`` and, when sharded, ``tp`` / ``pools``
+    (``serving/kv_cache.ShardedKVCache``).
+    """
+    s_tp = getattr(src_kv, "tp", 1)
+    d_tp = getattr(dst_kv, "tp", 1)
+    if s_tp == 1 and d_tp == 1:
+        return TransferEngine(src_kv.spec, dst_kv.spec)
+    return ShardedTransferEngine(
+        src_kv.spec, dst_kv.spec,
+        ShardSpec(s_tp, src_kv.spec.num_kv_heads),
+        ShardSpec(d_tp, dst_kv.spec.num_kv_heads))
+
+
+def land_plan(engine, plan: TransferPlan, src_kv, dst_kv) -> None:
+    """Execute ``plan`` from ``src_kv`` into ``dst_kv`` (in place) on the
+    engine :func:`pool_transfer_engine` chose for the two ports. A sharded
+    engine takes either side unsharded as a one-shard pool holding every
+    kv-head."""
+    if not isinstance(engine, ShardedTransferEngine):
+        dst_kv.import_plan(engine, plan, src_kv.pool)
+    elif hasattr(dst_kv, "shards"):
+        dst_kv.import_plan(engine, plan, _pools_of(src_kv))
+    else:
+        before = engine.num_dispatches
+        engine.execute(plan, _pools_of(src_kv), [dst_kv.pool])
+        dst_kv.num_pool_dispatches += engine.num_dispatches - before
+
+
 def verify_pool_transfer(plan: TransferPlan, src_kv, dst_kv) -> bool:
-    """Integrity check between two cache ports (unsharded pools only)."""
+    """Integrity check dispatching on the plan's shard topology."""
     if plan is not None and plan.sharded:
-        raise NotImplementedError(_SHARDED)
+        return verify_sharded_transfer(plan, src_kv.spec, _pools_of(src_kv),
+                                       dst_kv.spec, _pools_of(dst_kv))
     return verify_transfer(plan, src_kv.spec, src_kv.pool,
                            dst_kv.spec, dst_kv.pool)
-
-
-def pool_transfer_engine(src_kv, dst_kv) -> TransferEngine:
-    """The transfer engine between two pool ports (unsharded pools only)."""
-    if getattr(src_kv, "tp", 1) != 1 or getattr(dst_kv, "tp", 1) != 1:
-        raise NotImplementedError(_SHARDED)
-    return TransferEngine(src_kv.spec, dst_kv.spec)
 
 
 def transfer_request(src_spec: L.KVCacheSpec, src_cache: torch.Tensor, src_blocks: Sequence[int],
@@ -662,17 +852,27 @@ class PagedBackend(TransferBackend):
         self.schedule: Schedule = schedule
 
     def plan(self, req, src, dst) -> TransferJob:
-        if getattr(src.kv, "tp", 1) > 1 or getattr(dst.kv, "tp", 1) > 1:
-            raise NotImplementedError(_SHARDED)
         spec = src.kv.spec
-        return _plan_block_job(
+        job = _plan_block_job(
             self.name, self.schedule, TransferPlanner(spec), spec, req,
             src.kv.bm, lambda r: dst.register_transfer_in(r, r.prompt_len + 1),
             dst.kv.bm)
+        s_tp = getattr(src.kv, "tp", 1)
+        d_tp = getattr(dst.kv, "tp", 1)
+        if s_tp > 1 or d_tp > 1:
+            # stamp shard topology at PLAN time so verification and windowed
+            # splits downstream see the pair structure; num_dispatches
+            # becomes the pair count (one K1 launch per overlap)
+            job.plan = dataclasses.replace(
+                job.plan,
+                src_shard=ShardSpec(s_tp, src.kv.spec.num_kv_heads),
+                dst_shard=ShardSpec(d_tp, dst.kv.spec.num_kv_heads))
+            job.num_dispatches = job.plan.num_dispatches
+        return job
 
     def execute(self, job: TransferJob, src, dst) -> None:
-        engine = TransferEngine(src.kv.spec, dst.kv.spec)
-        dst.kv.import_plan(engine, job.plan, src.kv.pool)
+        engine = pool_transfer_engine(src.kv, dst.kv)
+        land_plan(engine, job.plan, src.kv, dst.kv)
         job.num_dispatches = engine.num_dispatches
 
 

@@ -8,7 +8,9 @@ version in ``<name>/ref.py``. Each wrapper counts its launches in a
 ``launches`` attribute.
 
 Ported, every TPU kernel of the reference: K1 ``kv_gather/ops.kv_transfer``
-(with K2, the fused decode append ``kv_gather/kv_append``), K3
+(with K2, the fused decode append ``kv_gather/kv_append``, and
+``kv_gather/ops.kv_transfer_fine``, its launch over one shard pair's fine
+rows), K3
 ``paged_attention/ops.paged_decode_attention``, K4
 ``flash_prefill/ops.flash_prefill_op``, and K5a/K5b
 ``kv_gather/ops.kv_gather`` (its own block copy) / ``kv_scatter`` (which
@@ -37,9 +39,11 @@ def ticket_counters(dev, stream, n: int):
 
 def _wrappers() -> dict:
     from repro_torch.kernels.flash_prefill.ops import flash_prefill_op
-    from repro_torch.kernels.kv_gather.ops import kv_gather, kv_scatter, kv_transfer
+    from repro_torch.kernels.kv_gather.ops import (kv_gather, kv_scatter, kv_transfer,
+                                                   kv_transfer_fine)
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-    return {"kv_transfer": kv_transfer, "paged_decode_attention": paged_decode_attention,
+    return {"kv_transfer": kv_transfer, "kv_transfer_fine": kv_transfer_fine,
+            "paged_decode_attention": paged_decode_attention,
             "flash_prefill": flash_prefill_op, "kv_gather": kv_gather,
             "kv_scatter": kv_scatter}
 
@@ -47,7 +51,9 @@ def _wrappers() -> dict:
 def launch_counts() -> dict:
     """Kernel launches counted by every wrapper since the last reset, plus
     ``flash_prefill_suffix`` (the K4 launches in suffix mode) and
-    ``kv_transfer_host`` (K1's launches with a pinned host pool)."""
+    ``kv_transfer_host`` (K1's launches with a pinned host pool);
+    ``kv_transfer_fine`` counts K1's launches over a sharded plan's fine
+    rows."""
     w = _wrappers()
     counts = {name: fn.launches for name, fn in w.items()}
     counts["flash_prefill_suffix"] = w["flash_prefill"].suffix_launches

@@ -9,8 +9,11 @@ so every SM shares a block's copy) with a table built on the device. K5a
 launches its own block-copy kernel (``csrc/kv_gather.cu``), which reads the
 block ids itself and needs no table. Each wrapper counts its own launches
 in ``launches``: ``kv_gather`` and ``kv_scatter`` do not add to
-``kv_transfer.launches``, and K1's launches with one pool in pinned host
-memory (the host tier) count in ``kv_transfer.host_launches`` instead.
+``kv_transfer.launches``, K1's launches with one pool in pinned host
+memory (the host tier) count in ``kv_transfer.host_launches`` instead, and
+its launches over a sharded plan's fine ``(-1, head_dim)`` rows (one shard
+pair of a tensor-parallel transfer) go through ``kv_transfer_fine`` and
+count there.
 """
 from __future__ import annotations
 
@@ -52,10 +55,40 @@ def kv_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     pool it wrote must synchronize the stream first. Any other mix of
     devices, and an unpinned host pool beside a GPU one, raises.
     """
+    route = _transfer(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer")
+    if route == "host":
+        kv_transfer.host_launches += 1
+    elif route == "card":
+        kv_transfer.launches += 1
+    return dst_pool
+
+
+def kv_transfer_fine(src_pool: torch.Tensor, dst_pool: torch.Tensor,
+                     src_rows: torch.Tensor, dst_rows: torch.Tensor,
+                     head_dim: int) -> torch.Tensor:
+    """K1 over fine rows: ``dst[dst_rows[i]] = src[src_rows[i]]`` with both
+    pools viewed as ``(-1, head_dim)`` rows, in one launch, in place on
+    ``dst_pool`` (one shard pair of a sharded transfer: a kv-head slice of
+    each page, ``head_dim`` elements a row). Both pools lie on one device;
+    the CPU runs the plain version. Returns ``dst_pool``."""
+    if src_pool.device != dst_pool.device:
+        raise ValueError(f"kv_transfer_fine: pools on {src_pool.device} and "
+                         f"{dst_pool.device}")
+    if _transfer(src_pool.view(-1, head_dim), dst_pool.view(-1, head_dim),
+                 src_rows, dst_rows, "kv_transfer_fine") == "card":
+        kv_transfer_fine.launches += 1
+    return dst_pool
+
+
+def _transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
+              src_pages: torch.Tensor, dst_pages: torch.Tensor, what: str):
+    """K1's routes (see :func:`kv_transfer`): "card" or "host" where a kernel
+    was launched, None where the plain version ran or the table was empty."""
     _check(src_pool, dst_pool, src_pages, dst_pages)
     devs = {t.device for t in (src_pool, dst_pool, src_pages, dst_pages)}
     if devs == {torch.device("cpu")}:
-        return kv_transfer_ref(src_pool, dst_pool, src_pages, dst_pages)
+        kv_transfer_ref(src_pool, dst_pool, src_pages, dst_pages)
+        return None
     gpu = {d for d in devs if d.type == "cuda"}
     if len(gpu) != 1 or not devs <= gpu | {torch.device("cpu")}:
         raise ValueError(f"kv_transfer tensors span devices {sorted(map(str, devs))}")
@@ -73,12 +106,10 @@ def kv_transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     if src_pages.dtype != torch.int32 or dst_pages.dtype != torch.int32:
         raise TypeError("kv_transfer: page tables must be int32")
     if any(host):
-        if _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer",
-                         dev=dev, host=host):
-            kv_transfer.host_launches += 1
-    elif _launch_pages(src_pool, dst_pool, src_pages, dst_pages, "kv_transfer"):
-        kv_transfer.launches += 1
-    return dst_pool
+        launched = _launch_pages(src_pool, dst_pool, src_pages, dst_pages, what,
+                                 dev=dev, host=host)
+        return "host" if launched else None
+    return "card" if _launch_pages(src_pool, dst_pool, src_pages, dst_pages, what) else None
 
 
 def _launch_pages(src: torch.Tensor, dst: torch.Tensor, src_pages: torch.Tensor,
@@ -199,5 +230,6 @@ def kv_scatter(pool: torch.Tensor, block_ids: torch.Tensor,
 
 kv_transfer.launches = 0
 kv_transfer.host_launches = 0
+kv_transfer_fine.launches = 0
 kv_gather.launches = 0
 kv_scatter.launches = 0

@@ -1,4 +1,5 @@
-"""Uniform model API. Port of ``repro/models/api.py`` for the dense family.
+"""Uniform model API. Port of ``repro/models/api.py`` for the transformer
+families (dense, MoE, VLM and audio backbones).
 
 ``get_model(cfg)`` returns a :class:`Model` whose members close over the
 config — the protocol the serving engine talks to::
@@ -10,7 +11,7 @@ config — the protocol the serving engine talks to::
     decode_paged(params, token, pool, block_tables, lengths) -> (logits, pool)
     prefill_suffix(params, batch, prefix_k, prefix_v) -> (logits, cache)
 
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+The state families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,11 +42,8 @@ class Model:
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return _transformer_model(cfg)
-    if cfg.family in ("moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 9")
     if cfg.family in ("ssm", "hybrid", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 11")

@@ -29,6 +29,19 @@ def attn_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def attn_param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    axes = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qk_norm:
+        axes["q_norm"] = ("head_dim",)
+        axes["k_norm"] = ("head_dim",)
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Projections
 # ---------------------------------------------------------------------------

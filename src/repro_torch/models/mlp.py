@@ -15,6 +15,11 @@ def mlp_param_shapes(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, 
     return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
 
 
+def mlp_param_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)

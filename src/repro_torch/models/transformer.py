@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family. Port of
-``repro/models/transformer.py``.
+"""Decoder-only transformer LM: the dense, MoE and VLM/backbone configs.
+Port of ``repro/models/transformer.py``.
 
 Params keep the reference's names and layouts: layer parameters stacked on
 a leading ``layers`` axis (``wq (L, d, H, hd)``, ``wo (L, H, hd, d)``, ...);
@@ -8,7 +8,9 @@ blocks::
 
     x = x + Attn(RMSNorm(x));  x = x + FFN(RMSNorm(x))
 
-The MoE family raises ``NotImplementedError`` (ROADMAP item 9).
+FFN is the gated MLP, or for the MoE family one of ``models/moe.py``'s
+dispatches (chosen as the reference's ``_ffn`` chooses). A VLM's
+``frontend_embeds`` are spliced in front of the text embeddings.
 """
 from __future__ import annotations
 
@@ -19,17 +21,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import ModelConfig, dense_init, embed, rms_norm, unembed
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "audio"):
+def _require_transformer(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 9 "
-            "(MoE) / item 11 (state families)")
+            f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 11 "
+            "(state families)")
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +42,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random params from an explicit ``torch.Generator`` seeded with ``seed``
     (no claim to reproduce ``jax.random``; tests bridge the reference's own
     init through :func:`repro_torch.models.bridge.from_reference`)."""
-    _require_dense(cfg)
+    _require_transformer(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -53,8 +56,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         layer["k_norm"] = torch.zeros((L, cfg.head_dim), dtype=cfg.dtype, device=dev)
     layer["norm_attn"] = torch.zeros((L, d), dtype=cfg.dtype, device=dev)
     layer["norm_mlp"] = torch.zeros((L, d), dtype=cfg.dtype, device=dev)
-    for name, shape in M.mlp_param_shapes(cfg).items():
-        layer[name] = dense_init(gen, (L, *shape), cfg.dtype)
+    if cfg.family == "moe":
+        for name, shape in MOE.moe_param_shapes(cfg).items():
+            layer[f"moe_{name}"] = dense_init(gen, (L, *shape), cfg.dtype)
+    else:
+        for name, shape in M.mlp_param_shapes(cfg).items():
+            layer[name] = dense_init(gen, (L, *shape), cfg.dtype)
     params: Params = {
         "embed": dense_init(gen, (cfg.vocab_size, d), cfg.dtype, scale=0.02),
         "final_norm": torch.zeros((d,), dtype=cfg.dtype, device=dev),
@@ -63,6 +70,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.vocab_size, d), cfg.dtype, scale=0.02)
     return params
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every param leaf (same structure as the params):
+    the rule table ``distributed/sharding.spec_for`` reads."""
+    layer_axes: Dict[str, Tuple[Optional[str], ...]] = {
+        name: ("layers", *ax) for name, ax in A.attn_param_axes(cfg).items()
+    }
+    layer_axes["norm_attn"] = ("layers", "embed")
+    layer_axes["norm_mlp"] = ("layers", "embed")
+    if cfg.family == "moe":
+        for name, ax in MOE.moe_param_axes().items():
+            layer_axes[f"moe_{name}"] = ("layers", *ax)
+    else:
+        for name, ax in M.mlp_param_axes().items():
+            layer_axes[name] = ("layers", *ax)
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": layer_axes,
+    }
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("vocab", "embed")
+    return axes
 
 
 def layer_params(params: Params, i: int) -> Dict[str, Tensor]:
@@ -74,7 +105,17 @@ def layer_params(params: Params, i: int) -> Dict[str, Tensor]:
 # Blocks
 # ---------------------------------------------------------------------------
 def _ffn(lp: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    _require_dense(cfg)
+    """The block's FFN output; the MoE dispatches' aux loss (a training
+    term) is dropped, as the reference's serving paths drop it."""
+    if cfg.family == "moe":
+        moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
+        if cfg.top_k == 1 and cfg.moe_sparse_dispatch:
+            return MOE.moe_ffn_topk_sparse(moe_p, x, cfg)[0]
+        if cfg.moe_dispatch == "gshard":
+            return MOE.moe_ffn_gshard(moe_p, x, cfg, cfg.moe_capacity_factor)[0]
+        if cfg.moe_dispatch == "gshard_einsum":
+            return MOE.moe_ffn_gshard_einsum(moe_p, x, cfg, cfg.moe_capacity_factor)[0]
+        return MOE.moe_ffn(moe_p, x, cfg)[0]
     return M.gated_mlp(lp, x, cfg.activation)
 
 

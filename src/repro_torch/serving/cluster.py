@@ -12,8 +12,7 @@ generation must be token-identical to monolithic generation on one engine.
 Fault tolerance: ``kill_node`` simulates a node death mid-flight; the
 controller's heartbeat scan drains and re-routes its requests.
 ``checkpoint``/``restore`` round-trip the full cluster state
-(``serving/checkpoint.py``). Not ported yet: tensor-parallel nodes
-(ROADMAP item 9).
+(``serving/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -26,8 +25,8 @@ from repro_torch.core.scheduler.global_controller import (AdmissionDecision,
                                                     AdmissionPolicy,
                                                     GlobalController, ModelCost,
                                                     NodeHandle)
-from repro_torch.core.transfer import (TransferEngine, backend_for_engine,
-                                       pool_transfer_engine, verify_pool_transfer)
+from repro_torch.core.transfer import (backend_for_engine, land_plan, pool_transfer_engine,
+                                       verify_pool_transfer)
 from repro_torch.faults import as_injector
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.engine import NodeEngine
@@ -80,10 +79,12 @@ class PDCluster:
                  transfer_backoff_cycles: float = 0.5,
                  tp_degrees: Optional[Dict[int, int]] = None,
                  device=None):
-        if any(t != 1 for t in (tp_degrees or {}).values()):
-            raise NotImplementedError(
-                "tp_degrees > 1 are not ported yet: see ROADMAP.md item 9")
         self.cfg = cfg
+        # Per-node mesh-parallel degree ({node_id: tp}, missing ids -> 1):
+        # a heterogeneous fleet runs e.g. TP=2 prefill nodes feeding TP=4
+        # decode nodes; the transfer plane lowers each cross-degree move to
+        # one K1 launch per overlapping (src_shard, dst_shard) pair.
+        self.tp_degrees = dict(tp_degrees or {})
         self.transfer_schedule = transfer_schedule
         self.target = target
         # Fault plane: an optional repro_torch.faults.FaultInjector (or spec list /
@@ -152,7 +153,7 @@ class PDCluster:
                                 paged_decode=paged_decode,
                                 chunked_prefill=chunked_prefill,
                                 prefill_chunk_tokens=prefill_chunk_tokens,
-                                device=device)
+                                tp_degree=self.tp_degrees.get(i, 1), device=device)
             engine.tracer = tracer
             self.engines[i] = engine
             host = (hosts or {}).get(i, i)
@@ -173,7 +174,9 @@ class PDCluster:
                  self.controller.prefix_index.invalidate_blocks(nid, blocks))
             if reuse:
                 engine.scheduler.resolve_prefix = self._make_resolver(engine)
-            if reuse and host_tier_blocks > 0:
+            # the host tier stays tp=1-only: demotion and promotion move
+            # whole-payload pages, as in the reference
+            if reuse and host_tier_blocks > 0 and engine.tp_degree == 1:
                 self.tiers[i] = engine.tier = TierManager(
                     i, engine.scheduler.bm, self.controller.prefix_index,
                     engine.kv.spec, host_tier_blocks, kv=engine.kv,
@@ -373,9 +376,12 @@ class PDCluster:
         table = plan.to_descriptors()
         if len(table) == 0:
             return
-        spec = dst.kv.spec
+        # sharded pool: flip an element in shard 0's slice (the per-pair
+        # verify covering (src?, dst_shard=0) must catch it)
+        kv = dst.kv.shards[0] if hasattr(dst.kv, "shards") else dst.kv
+        spec = kv.spec
         pid = int(table.page_ids(spec, "dst")[0])
-        dst.kv.pool.view(-1, spec.payload)[pid, 0] += 1.0   # in place
+        kv.pool.view(-1, spec.payload)[pid, 0] += 1.0   # in place
 
     def _abort_transfer(self, req: Request, src: NodeEngine, dst: NodeEngine,
                         job, reason: str, retries: int) -> None:
@@ -471,7 +477,7 @@ class PDCluster:
         the cost side of overlap, priced honestly; retried dispatches
         count too)."""
         subs = job.plan.split_layer_windows(self.layer_window)
-        engine_t = TransferEngine(src.kv.spec, dst.kv.spec)
+        engine_t = pool_transfer_engine(src.kv, dst.kv)
         bw = self._bandwidth_factor()
         lats = []
         penalty = 0.0
@@ -484,7 +490,7 @@ class PDCluster:
                 if dst.scheduler.bm.owns(req.request_id):
                     dst.scheduler.bm.free(req.request_id)
                 return "dst_dead", 0.0, 0.0
-            unit = lambda s=sub: dst.kv.import_plan(engine_t, s, src.kv.pool)
+            unit = lambda s=sub: land_plan(engine_t, s, src.kv, dst.kv)
             p = self._attempt_unit(req, src, dst, unit, sub)
             if p is None:
                 return "exhausted", 0.0, 0.0
@@ -592,9 +598,8 @@ class PDCluster:
             return   # destination pool full — retry next cycle
         dst_blocks = bm.allocate(req.request_id, hit)
         engine_t = pool_transfer_engine(src.kv, engine.kv)
-        plan = engine_t.planner.plan(self.transfer_schedule,
-                                     req.prefix_block_ids, dst_blocks)
-        engine.kv.import_plan(engine_t, plan, src.kv.pool)
+        plan = engine_t.plan(self.transfer_schedule, req.prefix_block_ids, dst_blocks)
+        land_plan(engine_t, plan, src.kv, engine.kv)
         profile = select_route(
             self.controller.nodes[src_id].host_id ==
             self.controller.nodes[engine.node_id].host_id, self.target)
@@ -833,6 +838,15 @@ class PDCluster:
             "decode_compile_variants": len(set().union(
                 *(e._decode_cache_keys for e in self.engines.values()))),
             "events": len(self.controller.events),
+            # mesh-parallel plane: nodes running sharded (tp>1), the largest
+            # degree in the fleet, and per-shard-pair transfer launches
+            # landed in sharded pools
+            "sharded_nodes": sum(
+                1 for e in self.engines.values() if e.tp_degree > 1),
+            "max_tp_degree": max(
+                (e.tp_degree for e in self.engines.values()), default=1),
+            "shard_dispatches": sum(
+                getattr(e.kv, "shard_dispatches", 0) for e in self.engines.values()),
             # fault plane: injected kills, failed transfer attempts retried,
             # transfers that gave up and recomputed, completed failovers —
             # and the leak audit (must stay 0.0, chaos or not)

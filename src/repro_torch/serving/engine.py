@@ -18,8 +18,13 @@ cache — is ROADMAP work.
 Ragged batches are padded to power-of-two buckets in BOTH batch size and
 block-table width (pad lanes replicate lane 0, so their duplicate append
 descriptors are idempotent); ``decode_compile_variants`` counts the buckets
-seen. State families and tensor parallelism are not ported (ROADMAP items
-11 and 9).
+seen. State families are not ported (ROADMAP item 11).
+
+``tp_degree > 1`` runs the model sharded over a model axis (TP for
+attention and MLP, EP for MoE experts) on the one device, with the pool
+split into per-kv-head-slice shard pools (``ShardedKVCache``); see
+``distributed/tp.py``. The sharded step launches K3 once per shard per
+layer and K1 once per shard pool for the append.
 """
 from __future__ import annotations
 
@@ -31,9 +36,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.scheduler.hybrid_scheduler import HybridScheduler, ScheduleDecision
+from repro_torch.distributed import tp as tp_mod
 from repro_torch.models.api import Model, get_model
 from repro_torch.models.common import ModelConfig
-from repro_torch.serving.kv_cache import PagedKVCache, spec_for_model
+from repro_torch.serving.kv_cache import PagedKVCache, ShardedKVCache, spec_for_model
 from repro_torch.serving.request import Request
 
 
@@ -56,9 +62,6 @@ class NodeEngine:
                  paged_decode: str = "auto", chunked_prefill: bool = True,
                  prefill_chunk_tokens: Optional[int] = None,
                  tp_degree: int = 1, device=None):
-        if tp_degree != 1:
-            raise NotImplementedError(
-                "tp_degree > 1 is not ported yet: see ROADMAP.md item 9")
         self.node_id = node_id
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -66,10 +69,23 @@ class NodeEngine:
         self.params = params
         self.max_model_len = max_model_len
         self.paged = True             # KV lives in the paged pool (backend_for_engine)
-        self.tp_degree = 1
-        self.ep_degree = 1
-        self.kv = PagedKVCache(spec_for_model(cfg, num_blocks), allocator,
-                               device=self.device)
+        # -- mesh parallelism ---------------------------------------------------------
+        # tp_degree > 1: the model runs sharded over a model axis, the pool
+        # split into per-kv-head-slice shard pools (distributed/tp.py).
+        self.tp_degree = tp_degree
+        self.ep_degree = tp_mod.ep_degree(cfg, tp_degree)
+        self.shard_params: Optional[List] = None
+        self.merged_combine = None
+        if tp_degree > 1:
+            tp_mod.validate_tp(cfg, tp_degree)
+            self.shard_params = tp_mod.shard_params(params, cfg, tp_degree)
+            # the combine weights concatenated once, not once a step
+            self.merged_combine = tp_mod.merged_combine(self.shard_params, cfg)
+            self.kv = ShardedKVCache(spec_for_model(cfg, num_blocks), tp_degree,
+                                     allocator, device=self.device)
+        else:
+            self.kv = PagedKVCache(spec_for_model(cfg, num_blocks), allocator,
+                                   device=self.device)
         # Chunked prefill needs the suffix data plane: an intermediate chunk
         # is exactly a suffix prefill (q_offset = tokens done) over the pool.
         self.supports_chunked_prefill = self.model.prefill_suffix is not None
@@ -152,8 +168,13 @@ class NodeEngine:
                 # this chunk's pages.
                 k_pre, v_pre = self.kv.gather_prefix(req.request_id, offset)
                 tokens = self._tokens(req.prompt_tokens[offset:offset + chunk])
-                logits, cache = self.model.prefill_suffix(
-                    self.params, {"tokens": tokens}, k_pre[:, None], v_pre[:, None])
+                if self.tp_degree > 1:
+                    logits, cache = tp_mod.sharded_prefill_suffix(
+                        self.shard_params, self.cfg, tokens, k_pre[:, None],
+                        v_pre[:, None], self.merged_combine)
+                else:
+                    logits, cache = self.model.prefill_suffix(
+                        self.params, {"tokens": tokens}, k_pre[:, None], v_pre[:, None])
                 self.kv.write_prefill(req.request_id, cache["k"][:, 0],
                                       cache["v"][:, 0], chunk, start=offset)
                 if offset == cached and cached > 0:
@@ -161,7 +182,11 @@ class NodeEngine:
                     self.prefix_tokens_reused += cached
             else:
                 tokens = self._tokens(req.prompt_tokens[:chunk])
-                logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+                if self.tp_degree > 1:
+                    logits, cache = tp_mod.sharded_prefill(
+                        self.shard_params, self.cfg, tokens, self.merged_combine)
+                else:
+                    logits, cache = self.model.prefill(self.params, {"tokens": tokens})
                 self.kv.write_prefill(req.request_id, cache["k"][:, 0],
                                       cache["v"][:, 0], chunk)
             if final and not req.output_tokens:
@@ -246,9 +271,13 @@ class NodeEngine:
         dev = self.device
         # decode_dispatches counts host-issued step calls: this branch makes
         # exactly ONE (the argmax below is a host read of its output).
-        logits, _ = self.model.decode_paged(
-            self.params, torch.from_numpy(tok_arr).to(dev), self.kv.pool,
-            torch.from_numpy(bt).to(dev), torch.from_numpy(len_arr).to(dev))
+        tok_t, bt_t, len_t = (torch.from_numpy(a).to(dev) for a in (tok_arr, bt, len_arr))
+        if self.tp_degree > 1:
+            logits, _ = tp_mod.sharded_decode_step_paged(
+                self.shard_params, self.cfg, tok_t, self.kv.pools, bt_t, len_t,
+                self.merged_combine)
+        else:
+            logits, _ = self.model.decode_paged(self.params, tok_t, self.kv.pool, bt_t, len_t)
         self.kv.num_pool_dispatches += 1
         self.decode_steps += 1
         self.decode_dispatches += 1

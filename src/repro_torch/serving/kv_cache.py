@@ -182,8 +182,114 @@ class PagedKVCache:
 
 
 class ShardedKVCache:
-    """``tp`` per-shard pools over one block manager (not ported)."""
+    """``tp`` per-shard pools over ONE block manager, all on one device.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedKVCache is not ported yet: see ROADMAP.md item 9")
+    Shard ``s`` holds the FLOWKV pool for its contiguous kv-head slice —
+    same ``(num_blocks, L, 2, ·)`` geometry, payload ``block_size *
+    (num_kv_heads/tp) * head_dim``. Page ids are GLOBAL: one BlockManager
+    allocates for all shards (a request's block i is block i in every
+    shard's pool), which lets a cross-degree transfer plan address both
+    sides with one descriptor table (``core/transfer.ShardedTransferEngine``)
+    and keeps the leak audit a single-control-plane problem.
+
+    The dense bridge (write/gather) presents FULL-width K/V to callers and
+    slices/concatenates on the kv-head axis at the boundary: each shard
+    writes its slice through K5b and gathers through K5a, so the engine's
+    prefill, spill and prefix-reuse paths are shard-agnostic.
+
+    ``num_pool_dispatches`` counts host-issued operations per ROLE, not per
+    shard (one decode step is one, though it touches ``tp`` pools);
+    ``shard_dispatches`` counts the per-(src_shard, dst_shard)-pair
+    transfer launches landed here.
+    """
+
+    def __init__(self, spec: KVCacheSpec, tp: int, allocator: str = "flowkv",
+                 device=None):
+        from repro_torch.core.transfer import ShardSpec, shard_slice_spec
+
+        self.spec = spec                       # FULL-width spec
+        self.tp = tp
+        self.device = resolve_device(device)
+        self.shard_spec = ShardSpec(tp, spec.num_kv_heads)
+        self.bm = BlockManager(spec.num_blocks, spec.block_size, allocator)
+        self.shards = [
+            PagedKVCache(shard_slice_spec(spec, self.shard_spec), allocator,
+                         bm=self.bm, device=self.device)
+            for _ in range(tp)]
+        self.num_pool_dispatches = 0
+        self.shard_dispatches = 0              # per-shard-pair transfer lands
+
+    @property
+    def pools(self) -> List[torch.Tensor]:
+        return [s.pool for s in self.shards]
+
+    def _head_slices(self, arr: torch.Tensor, axis: int) -> List[torch.Tensor]:
+        width = arr.shape[axis] // self.tp
+        return [arr.narrow(axis, s * width, width) for s in range(self.tp)]
+
+    # -- write path -------------------------------------------------------------
+    def write_prefill(self, request_id: int, k: torch.Tensor, v: torch.Tensor,
+                      length: int, start: int = 0) -> List[int]:
+        """Full-width (L, S, KV, hd) K/V: each shard writes its head slice."""
+        blocks: List[int] = []
+        for shard, k_s, v_s in zip(self.shards, self._head_slices(k, 2),
+                                   self._head_slices(v, 2)):
+            blocks = shard.write_prefill(request_id, k_s, v_s, length, start=start)
+        self.num_pool_dispatches += 1
+        return blocks
+
+    def append_token(self, request_id: int, k_new: torch.Tensor,
+                     v_new: torch.Tensor, position: int) -> None:
+        for shard, k_s, v_s in zip(self.shards, self._head_slices(k_new, 1),
+                                   self._head_slices(v_new, 1)):
+            shard.append_token(request_id, k_s, v_s, position)
+        self.num_pool_dispatches += 1
+
+    def append_tokens(self, request_ids: Sequence[int], k_new: torch.Tensor,
+                      v_new: torch.Tensor, positions: Sequence[int]) -> None:
+        for shard, k_s, v_s in zip(self.shards, self._head_slices(k_new, 2),
+                                   self._head_slices(v_new, 2)):
+            shard.append_tokens(request_ids, k_s, v_s, positions)
+        self.num_pool_dispatches += 1
+
+    # -- read path ---------------------------------------------------------------
+    def export_block_tables(self, request_ids: Sequence[int]) -> np.ndarray:
+        return self.shards[0].export_block_tables(request_ids)
+
+    def gather_prefix(self, request_id: int, length: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        nb = self.spec.blocks_for_tokens(length)
+        return self.gather_dense(request_id, length, num_blocks=nb)
+
+    def gather_dense(self, request_id: int, max_len: int,
+                     num_blocks: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        parts = [s.gather_dense(request_id, max_len, num_blocks=num_blocks)
+                 for s in self.shards]
+        self.num_pool_dispatches += 1
+        return (torch.cat([k for k, _ in parts], dim=2),
+                torch.cat([v for _, v in parts], dim=2))
+
+    # -- transfer path -----------------------------------------------------------
+    def import_plan(self, engine, plan, src_pools: Sequence[torch.Tensor]) -> None:
+        """Land a sharded transfer plan: one K1 launch per shard pair.
+
+        ``engine`` is a :class:`~repro_torch.core.transfer.ShardedTransferEngine`;
+        ``src_pools`` are the source node's per-shard pools (any tp degree).
+        """
+        before = engine.num_dispatches
+        engine.execute(plan, list(src_pools), self.pools)
+        landed = engine.num_dispatches - before
+        self.shard_dispatches += landed
+        self.num_pool_dispatches += landed
+
+    # -- capacity / bookkeeping -----------------------------------------------------
+    @property
+    def utilization(self) -> float:
+        return self.bm.utilization
+
+    def free(self, request_id: int) -> None:
+        self.bm.free(request_id)
+
+    def check_invariants(self) -> None:
+        self.bm.check_invariants()

@@ -20,6 +20,9 @@ def test_import_every_module_without_jax():
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "need = {'repro_torch.models.moe', 'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.distributed.tp'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -88,25 +91,28 @@ def test_launcher_refuses_missing_cuda():
 
 
 def test_out_of_scope_features_name_their_roadmap_item():
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.core.transfer import ShardedTransferEngine
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.transfer import ShardedTransferEngine, ShardSpec
     from repro_torch.models import transformer as T
     from repro_torch.serving.cluster import PDCluster
-    from repro_torch.serving.kv_cache import ShardedKVCache
+    from repro_torch.serving.kv_cache import ShardedKVCache, spec_for_model
 
     cfg = get_smoke_config("qwen3-1.7b")
     params = T.init_params(cfg, 0, device="cpu")
-    cases = [
-        (lambda: get_smoke_config("granite-moe-1b-a400m"), "item 9"),
-        (lambda: get_smoke_config("mamba2-370m"), "item 11"),
-        (lambda: PDCluster(cfg, params, num_blocks=8, device="cpu",
-                           tp_degrees={0: 2}), "item 9"),
-        (lambda: ShardedKVCache(None, 2), "item 9"),
-        (lambda: ShardedTransferEngine(None, None, None, None), "item 9"),
-    ]
-    for fn, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    # the state families are item 11
+    for arch in ("mamba2-370m", "recurrentgemma-2b", "seamless-m4t-large-v2"):
+        for get in (get_config, get_smoke_config):
+            with pytest.raises(NotImplementedError, match="item 11"):
+                get(arch)
+    # item 9 is ported: MoE, VLM and tensor/expert-parallel serving
+    for arch, family in (("granite-moe-1b-a400m", "moe"), ("llama4-scout-17b-a16e", "moe"),
+                         ("llava-next-34b", "vlm")):
+        assert get_config(arch).family == get_smoke_config(arch).family == family
+    tp = PDCluster(cfg, params, num_blocks=8, device="cpu", tp_degrees={0: 2})
+    assert tp.engines[0].tp_degree == 2 and isinstance(tp.engines[0].kv, ShardedKVCache)
+    spec = spec_for_model(cfg, 8)
+    assert len(ShardedKVCache(spec, 2, device="cpu").pools) == 2
+    ShardedTransferEngine(spec, spec, ShardSpec(2, 2), ShardSpec(1, 2))
     # items 8 and 7 are ported: the host tier and the serving checkpoint work
     from repro_torch.serving.host_tier import TierManager
 
