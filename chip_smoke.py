@@ -124,6 +124,32 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  (cold and suffix), K5a and K5b launched. K4's shapes in
                  this phase (cold 4096 and 256, suffix 200 over 1256, bf16)
                  are held against its plain version in the kernels phase.
+10. ``e2e_state`` — the state families at full width and depth, one model
+                 on the card at a time: mamba2-370m (prompts of 200-1500
+                 tokens, 16 new) and recurrentgemma-2b (640, 1500 and 3000
+                 tokens, the last across the 2048-slot ring's wrap; 8 new)
+                 served 1P+1D through the state path in bfloat16 and
+                 float32, tokens identical to the port's monolithic
+                 generation, every transfer one ``state`` job of 1
+                 dispatch (5 / 11 calls, its bytes printed), no state or
+                 block left; in float32 each decode step's logits against
+                 the prefill of the prompt plus the tokens so far (1100 /
+                 3000 tokens) and mamba2's prefill at ssm_chunk 256 against
+                 100, each within STATE_LIMIT while a planted fault reads
+                 above it; in bfloat16 the TTFT and handoff walls, one
+                 decode step's wall and device time, one cold prefill's
+                 device split with the SSD / LRU scan's own device time.
+                 seamless-m4t-large-v2 at the model level: 600, 1500 and
+                 4096 frames, a 32-token decoder prompt, 8 greedy steps
+                 from a padded cache, K4 launched non-causally 24 times an
+                 encoder pass above 1024 frames and never at 600 (these
+                 launches go into the ``kernels`` line as
+                 ``flash_prefill_noncausal``; the fp32 check's as
+                 ``..._fp32``), the encoder's device split at 4096, and
+                 the fp32 decode-vs-prefill check at 1500 frames. griffin's
+                 and seamless's attention is tempered (STATE_TEMPERED).
+                 The kernels phase holds K4 non-causal at seamless's heads
+                 (S = T = 1500 and 4096, 16/16, hd 64) in both dtypes.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -501,7 +527,7 @@ def _k3_case(torch, peaks, gen, flush, kpool, pspec, layer, H, B, lens, W, tag=N
                 bound_ms=b3, bound_by=b3_by)
 
 
-def _sdpa(torch, q, k, v, q_offset):
+def _sdpa(torch, q, k, v, q_offset, causal=True):
     """One scaled_dot_product_attention call on the same inputs (the
     yardstick of ``library_ms``; the port never calls it), in its
     (B, H, S, hd) layout, prepared outside the timed call."""
@@ -514,7 +540,8 @@ def _sdpa(torch, q, k, v, q_offset):
         mask = (torch.arange(t, device=q.device)[None, :]
                 <= q_offset + torch.arange(s, device=q.device)[:, None])
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  is_causal=mask is None, enable_gqa=True)
+                                                  is_causal=causal and mask is None,
+                                                  enable_gqa=True)
 
 
 def _k4_cases(torch, peaks, gen, flush) -> dict:
@@ -543,10 +570,18 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
     # row independence: rows 1056.. of the cold call == the suffix call's rows
     for dtype in both:
         _k4_rows_identical(torch, gen, dtype, 1456, 16, 8, 128, (1056, 1000, 1455))
+    # non-causal, at seamless-m4t-large-v2's encoder heads (e2e_state)
+    for dtype in both:
+        for s in SEAMLESS_K4_LENS:
+            row = _k4_case(torch, peaks, gen, flush, dtype, "non-causal, seamless encoder",
+                           s, 0, 16, 16, 64, causal=False)
+            if s == max(SEAMLESS_K4_LENS):
+                name = "flash_prefill_noncausal" + ("" if dtype == torch.bfloat16 else "_fp32")
+                mains[name] = row
     return mains
 
 
-def _k4_case(torch, peaks, gen, flush, dtype, tag, s, off, H, KV, hd) -> dict:
+def _k4_case(torch, peaks, gen, flush, dtype, tag, s, off, H, KV, hd, causal=True) -> dict:
     """One K4 call against its plain version (and, in bf16, the plain
     version on the upcast values), with its times, bound and SDPA's time."""
     from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
@@ -555,34 +590,35 @@ def _k4_case(torch, peaks, gen, flush, dtype, tag, s, off, H, KV, hd) -> dict:
     t = s + off
     mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(dtype)  # noqa: E731
     q, k, v = mk(1, s, H, hd), mk(1, t, KV, hd), mk(1, t, KV, hd)
-    out = flash_prefill_op(q, k, v, q_offset=off)
-    same = flash_prefill_ref(q, k, v, q_offset=off)
+    out = flash_prefill_op(q, k, v, causal=causal, q_offset=off)
+    same = flash_prefill_ref(q, k, v, causal=causal, q_offset=off)
     sync(torch)
     err = float((out.float() - same.float()).abs().max())
     if dtype == torch.float32:
         up_err, ok = err, err <= K4_FP32_TOL
     else:
-        up = flash_prefill_ref(q.float(), k.float(), v.float(), q_offset=off)
+        up = flash_prefill_ref(q.float(), k.float(), v.float(), causal=causal, q_offset=off)
         d = (out.float() - up).abs()
         up_err = float(d.max())
         ok = err <= K4_BF16_TOL and bool((d <= up.abs() * 2.0 ** -8 + 1e-5).all())
         del up, d
     check(ok, f"K4 disagrees ({dtype}, {tag}): {err} vs plain, {up_err} vs upcast")
-    pairs = s * off + s * (s + 1) // 2
+    pairs = s * off + s * (s + 1) // 2 if causal else s * t
     esz = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
     key = "fp32" if dtype == torch.float32 else "bf16"
     b4, b4_by = bound_ms(nbytes, 4 * hd * H * pairs, peaks, key)
-    t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v, q_offset=off), flush=flush)
-    t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, q_offset=off),
+    t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v, causal=causal, q_offset=off),
+                 flush=flush)
+    t4p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=causal, q_offset=off),
                   reps=5, flush=flush)
-    t4l = time_ms(torch, _sdpa(torch, q, k, v, off), flush=flush)
+    t4l = time_ms(torch, _sdpa(torch, q, k, v, off, causal), flush=flush)
     plan = None
     if dtype == torch.float32:      # the fp32 kernel's grid for this call
-        plan = launch_plan(1, s, t, H, KV, hd, True,
+        plan = launch_plan(1, s, t, H, KV, hd, causal,
                            torch.cuda.get_device_properties(0).multi_processor_count)
     emit("kernels", kernel="flash_prefill", case=tag, dtype=str(dtype), S=s, T=t,
-         q_offset=off, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
+         q_offset=off, causal=causal, heads=[H, KV, hd], max_abs_err=err, vs_upcast_err=up_err,
          ms=t4, plain_ms=t4p, library_ms=t4l, bound_ms=b4, bound_by=b4_by,
          flops=4 * hd * H * pairs, bytes=nbytes, tflops=4 * hd * H * pairs / t4 / 1e9,
          bound_share=b4 / t4, plan=plan)
@@ -2213,6 +2249,410 @@ def phase_sim_calibrate(torch, env) -> None:
 
 
 # ---------------------------------------------------------------------------
+# e2e_state: the state families and the state transfer path
+# ---------------------------------------------------------------------------
+# arch -> (prompt lengths, new tokens, cache leaves = transfer calls)
+STATE_RUNS = {"mamba2-370m": ([200, 640, 1100, 1500], 16, 5),
+              "recurrentgemma-2b": ([640, 1500, 3000], 8, 11)}
+STATE_BLOCKS = 512                     # admission budget only: no pool
+STATE_BATCH_TOKENS = 4096              # whole-prompt admission of 3000 tokens
+# fp32 consistency of two algorithms on one input: a decode step from the
+# prefilled state against the prefill of the prompt plus the tokens so far
+# (CONSISTENCY_STEPS steps), and mamba2's prefill at ssm_chunk 256 against
+# CHUNK_ALT. Held to STATE_LIMIT x max(1, max |logit|): the sound runs read
+# up to ~5e-5 on the H100 (the SSD's in-chunk cumsum of log a in fp32 sets
+# that), and each check's planted fault (_plant_*, _chunked_h_bf16) must
+# read above it, else the gate could not see a real fault
+# (tools/state_conditioning_probe.py reads both).
+CONSISTENCY_LEN = {"mamba2-370m": 1100, "recurrentgemma-2b": 3000}
+CONSISTENCY_STEPS = 6
+CHUNK_ALT = 100
+# 10 tokens past CHUNK_ALT's last boundary: mamba2's state forgets fast (the
+# init's A_log spans log 1..16, so even the slowest head decays by exp(-dt)
+# a token), and a fault at a boundary far behind the last token never
+# reaches its logits
+CHUNK_CHECK_LEN = 1110
+STATE_LIMIT = 5e-4
+# griffin's and seamless's random attention is chaotic at the init's scale
+# (as granite's, e2e_moe_tp): dense_init reads the heads axis of wq / wk
+# (d, H, hd) as their fan-in, so scores are d / H = 256x (griffin) and 64x
+# (seamless) too large and an fp32 summation-order difference flips which
+# key wins (tools/state_conditioning_probe.py: decode vs prefill far above
+# STATE_LIMIT at the init's scale).
+# e2e_state scales wq and wk (and the cross-attention's) by sqrt(H / d),
+# the fan-in dense_init meant; wv stays (at fan-in scale the streams
+# collapse to one token).
+STATE_TEMPERED = ("hybrid", "encdec")
+# seamless-m4t-large-v2 at the model level: encoder frames, a decoder
+# prompt, greedy steps from a cache padded into init_cache(max_len)
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_FRAMES = [600, 1500, 4096]
+SEAMLESS_K4_LENS = [1500, 4096]        # its K4 shapes in the kernels phase
+SEAMLESS_PROMPT = 32
+SEAMLESS_STEPS = 8
+SEAMLESS_CHECK_FRAMES = 1500
+
+
+def _temper_attention(torch, cfg, params) -> None:
+    """Scale every attention's wq and wk by sqrt(H / d) in place (see
+    STATE_TEMPERED)."""
+    f = (cfg.num_heads / cfg.d_model) ** 0.5
+    stacks = ([params["groups"]["attn"]] if cfg.family == "hybrid"
+              else [params["encoder"], params["decoder"]])
+    for st in stacks:
+        for name in ("wq", "wk", "x_wq", "x_wk"):
+            if name in st:
+                st[name].mul_(f)
+
+
+def _state_generate(torch, model, params, batch, new, pad=None) -> list:
+    """The port's monolithic generation: prefill, then the decode loop on
+    the prefill's state (``pad`` widens an enc-dec cache first)."""
+    logits, cache = model.prefill(params, batch)
+    if pad is not None:
+        cache = pad(cache)
+    out = [int(torch.argmax(logits[0]))]
+    while len(out) < new:
+        tok = torch.tensor(out[-1:], dtype=torch.int32, device=DEVICE)
+        logits, cache = model.decode(params, tok, cache)
+        check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+        out.append(int(torch.argmax(logits[0])))
+    return out
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _decode_vs_prefill(torch, model, params, batch_of, prompt, steps, plant=None,
+                       pad=None) -> list:
+    """Each decode step's logits from the prefilled state against the
+    prefill of the prompt plus the tokens so far (fp32); ``plant(cache)``
+    damages the state before each step, ``pad`` widens an enc-dec cache.
+    Returns the relative errors."""
+    logits, cache = model.prefill(params, batch_of(prompt))
+    if pad is not None:
+        cache = pad(cache)
+    seq = list(prompt) + [int(torch.argmax(logits[0]))]
+    errs = []
+    for _ in range(steps):
+        if plant is not None:
+            cache = plant(cache)
+        tok = torch.tensor(seq[-1:], dtype=torch.int32, device=DEVICE)
+        ld, cache = model.decode(params, tok, cache)
+        lp, _ = model.prefill(params, batch_of(seq))
+        errs.append(_rel_err(ld, lp))
+        seq.append(int(torch.argmax(lp[0])))
+    return errs
+
+
+def _plant_ssm_h(torch, cache):
+    """Planted: mamba2's fp32 h rounded to bf16 (a state kept at the
+    config's dtype)."""
+    return dict(cache, h=cache["h"].to(torch.bfloat16).float())
+
+
+def _plant_ring_slot(torch, cache):
+    """Planted: the newest ring slot (the last token's K/V) of every
+    attention layer zeroed, as a ring written one slot off would leave it."""
+    w = cache["g_k"].shape[2]
+    slot = (int(cache["length"][0]) - 1) % w
+    gk, gv = cache["g_k"].clone(), cache["g_v"].clone()
+    gk[:, :, slot] = 0
+    gv[:, :, slot] = 0
+    return dict(cache, g_k=gk, g_v=gv)
+
+
+def _plant_self_kv(torch, cache):
+    """Planted: the decoder's self K/V of its first position zeroed."""
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[:, :, 0] = 0
+    v[:, :, 0] = 0
+    return dict(cache, k=k, v=v)
+
+
+def _chunked_h_bf16(torch, orig):
+    """Planted into mamba2's SSD: h rounded to bf16 between chunks (the
+    original scan run one chunk at a time)."""
+    def planted(log_a, Bm, Cm, xdt, h0, chunk):
+        ys, h = [], h0
+        for c0 in range(0, log_a.shape[1], chunk):
+            sl = slice(c0, c0 + chunk)
+            y, h = orig(log_a[:, sl], Bm[:, sl], Cm[:, sl], xdt[:, sl], h, chunk)
+            h = h.to(torch.bfloat16).float()
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
+    return planted
+
+
+@contextlib.contextmanager
+def _patched(module, name, fn):
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _hold(tag, name, errs, planted) -> dict:
+    """A consistency check: the sound errors within STATE_LIMIT, the planted
+    fault's above it."""
+    sound, bad = max(errs), max(planted)
+    check(sound <= STATE_LIMIT, f"{tag}: {name} off by {sound} > {STATE_LIMIT}")
+    check(bad > STATE_LIMIT, f"{tag}: the planted fault of {name} reads {bad}, within "
+                             f"the limit {STATE_LIMIT}: the gate cannot see it")
+    return {"max_rel_err": sound, "per_step": errs, "planted_max_rel_err": bad,
+            "limit": STATE_LIMIT}
+
+
+def _scan_profile(torch, module, name, run) -> dict:
+    """The device time of every call ``run()`` makes to ``module.name`` (the
+    SSD chunk loop / the RG-LRU's log-depth scan): the calls' inputs are
+    recorded during one run, then replayed alone under the profiler."""
+    calls, orig = [], getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    with _patched(module, name, record):
+        run()
+    sync(torch)
+    by_kernel, wall = _profiled(torch, lambda: [orig(*a) for a in calls], n=1)
+    out = dict(calls=len(calls), device_ms=sum(by_kernel.values()) / 1e3,
+               replay_wall_ms=wall * 1e3)
+    del calls
+    return out
+
+
+def _state_timing(torch, model, params, prompts, handles, scan) -> dict:
+    """bf16: the run's TTFT and handoff walls with the state bytes (beside
+    qwen3-1.7b's K/V at the same length, reckoned), one decode step's wall
+    and device time, and one cold prefill's device split with the scan's
+    own device time."""
+    from repro_torch.configs import get_config
+
+    kv_tok = get_config(ARCH).kv_bytes_per_token()
+    per_req = []
+    for h in handles:
+        r = h.request
+        per_req.append({"prompt_len": r.prompt_len,
+                        "ttft_wall_s": r.first_token_wall - r.arrival_wall,
+                        "handoff_wall_ms": (r.transfer_end_wall - r.transfer_start_wall) * 1e3,
+                        "qwen3_kv_bytes_same_len": kv_tok * r.prompt_len})
+    longest = max(prompts, key=len)
+    tok = torch.tensor([longest], dtype=torch.int32, device=DEVICE)
+    _, cache = model.prefill(params, {"tokens": tok})
+    step_tok = torch.tensor([1], dtype=torch.int32, device=DEVICE)
+    step = lambda: model.decode(params, step_tok, cache)   # noqa: E731  (functional)
+    for _ in range(3):
+        step()
+    sync(torch)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        sync(torch)
+        walls.append(time.perf_counter() - t0)
+    by_kernel, wall = _profiled(torch, step)
+    total = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+    prefill = _profile_split(torch, lambda: model.prefill(params, {"tokens": tok}))
+    scan_prof = _scan_profile(torch, *scan, lambda: model.prefill(params, {"tokens": tok}))
+    scan_prof["share_of_prefill_device"] = scan_prof["device_ms"] / prefill["device_ms"]
+    return {"requests": per_req, "step_prompt_len": len(longest),
+            "step_wall_ms": statistics.median(walls) * 1e3, "step_device_ms": total / 3e3,
+            "step_device_busy_share": (total / 1e6) / wall if wall else None,
+            "step_top_kernels_ms": [(k[:80], v / 3e3) for k, v in top],
+            "cold_prefill": dict(prompt_len=len(longest), **prefill), "scan": scan_prof}
+
+
+def _serve_state(torch, cfg, params, prompts, new):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+
+    client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1, num_blocks=STATE_BLOCKS,
+                          max_batch_tokens=STATE_BATCH_TOKENS, device=DEVICE)
+    sync(torch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [client.submit(p, SamplingParams(max_new_tokens=new)) for p in prompts]
+    client.drain(max_cycles=500)
+    sync(torch)
+    return client, handles, launch_counts(), time.perf_counter() - t0
+
+
+def _state_family(torch, arch) -> dict:
+    """One state-family arch at full width and depth: served 1P+1D in bf16
+    and fp32 against monolithic generation, the fp32 consistency checks,
+    the bf16 timing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import griffin as G
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.api import get_model
+
+    lengths, new, leaves = STATE_RUNS[arch]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"e2e_state {arch} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        model = get_model(cfg)
+        params = model.init(SEED, DEVICE)
+        if cfg.family in STATE_TEMPERED:
+            _temper_attention(torch, cfg, params)
+        prompts = _prompts(cfg, lengths, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        client, handles, counts, serve_s = _serve_state(torch, cfg, params, prompts, new)
+        s = client.stats()
+        xfers = [t for t in client.cluster.transfers if t.kind == "kv"]
+        outs = [h.request.output_tokens for h in handles]
+        mono = [_state_generate(torch, model, params, {"tokens": torch.tensor(
+            [p], dtype=torch.int32, device=DEVICE)}, new) for p in prompts]
+        check(s["finished"] == len(prompts), f"{tag}: {s['finished']} finished")
+        check(outs == mono, f"{tag}: served tokens differ from monolithic generation")
+        check(len(xfers) == len(prompts) and all(
+            (t.status, t.schedule, t.num_calls, t.num_dispatches) == ("ok", "state", leaves, 1)
+            for t in xfers), f"{tag}: transfers {[(t.status, t.schedule, t.num_calls, t.num_dispatches) for t in xfers]}")
+        check(s["decode_dispatches"] >= s["decode_steps"] > 0, f"{tag}: decode accounting {s}")
+        check(all(not e.states for e in client.cluster.engines.values()),
+              f"{tag}: states left behind")
+        check(s["leaked_blocks"] == 0.0, f"{tag}: leaked blocks")
+        data = dict(model=cfg.name, dtype=str(dtype), layers=cfg.num_layers,
+                    d_model=cfg.d_model, prompt_lens=lengths, new_tokens=new,
+                    serve_s=serve_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    state_bytes=[t.num_bytes for t in xfers], transfer_calls=leaves,
+                    decode_steps=s["decode_steps"], decode_dispatches=s["decode_dispatches"],
+                    distinct_tokens=[len(set(o)) for o in outs], launches=counts)
+        if dtype == torch.bfloat16:
+            scan = (M2, "_ssd_chunked") if cfg.family == "ssm" else (G, "linear_scan")
+            data.update(_state_timing(torch, model, params, prompts, handles, scan))
+        else:
+            prompt = _prompts(cfg, [CONSISTENCY_LEN[arch]], SEED + 1)[0]
+            batch_of = lambda seq: {"tokens": torch.tensor(   # noqa: E731
+                [seq], dtype=torch.int32, device=DEVICE)}
+            plant = _plant_ssm_h if cfg.family == "ssm" else _plant_ring_slot
+            data["decode_vs_prefill"] = _hold(
+                tag, "decode vs prefill",
+                _decode_vs_prefill(torch, model, params, batch_of, prompt, CONSISTENCY_STEPS),
+                _decode_vs_prefill(torch, model, params, batch_of, prompt, CONSISTENCY_STEPS,
+                                   plant=lambda c: plant(torch, c)))
+            if cfg.family == "ssm":
+                alt = get_model(dataclasses.replace(cfg, ssm_chunk=CHUNK_ALT))
+                prompt = _prompts(cfg, [CHUNK_CHECK_LEN], SEED + 1)[0]
+                want, _ = model.prefill(params, batch_of(prompt))
+                got, _ = alt.prefill(params, batch_of(prompt))
+                with _patched(M2, "_ssd_chunked", _chunked_h_bf16(torch, M2._ssd_chunked)):
+                    bad, _ = alt.prefill(params, batch_of(prompt))
+                data["chunk_256_vs_100"] = _hold(tag, "chunk 256 vs 100", [_rel_err(got, want)],
+                                                 [_rel_err(bad, want)])
+        emit("e2e_state", arch=arch, **data)
+        out[str(dtype)] = data
+        del params, client, handles, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seamless(torch) -> tuple:
+    """seamless-m4t-large-v2 at the model level (bf16): encode, prefill and
+    greedy decode from a padded cache at each frame count, K4 non-causal
+    launches counted per encoder pass; then the fp32 consistency check.
+    Returns (bf16 counts, fp32 counts, data)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import encdec as E
+    from repro_torch.models.api import get_model
+
+    data = {}
+    counts = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "bf16" if dtype == torch.bfloat16 else "fp32"
+        tag = f"e2e_state {SEAMLESS} {key}"
+        cfg = dataclasses.replace(get_config(SEAMLESS), dtype=dtype)
+        model = get_model(cfg)
+        params = model.init(SEED, DEVICE)
+        _temper_attention(torch, cfg, params)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        prompt = _prompts(cfg, [SEAMLESS_PROMPT], SEED)[0]
+
+        def batch(frames, seq):
+            return {"frames": frames, "tokens": torch.tensor([seq], dtype=torch.int32,
+                                                             device=DEVICE)}
+
+        def pad(frames):
+            def fn(cache):
+                c = E.init_cache(cfg, 1, SEAMLESS_PROMPT + SEAMLESS_STEPS + 1,
+                                 frames.shape[1], device=DEVICE)
+                n = cache["k"].shape[2]
+                c["k"][:, :, :n] = cache["k"]
+                c["v"][:, :, :n] = cache["v"]
+                c.update(cross_k=cache["cross_k"], cross_v=cache["cross_v"],
+                         length=cache["length"].clone())
+                return c
+            return fn
+
+        if dtype == torch.bfloat16:
+            runs = []
+            sync(torch)
+            reset_launch_counts()
+            for n in SEAMLESS_FRAMES:
+                frames = torch.randn((1, n, cfg.d_model), generator=gen, device=DEVICE)
+                before = launch_counts()["flash_prefill_noncausal"]
+                toks = _state_generate(torch, model, params, batch(frames, prompt),
+                                       SEAMLESS_STEPS, pad=pad(frames))
+                sync(torch)
+                k4 = launch_counts()["flash_prefill_noncausal"] - before
+                want = cfg.num_encoder_layers if n > cfg.flash_threshold else 0
+                check(k4 == want, f"{tag}: {k4} K4 non-causal launches for {n} frames, "
+                                  f"want {want}")
+                runs.append({"frames": n, "k4_noncausal_launches": k4, "tokens": toks,
+                             "distinct_tokens": len(set(toks))})
+            counts[key] = launch_counts()
+            frames = torch.randn((1, max(SEAMLESS_FRAMES), cfg.d_model), generator=gen,
+                                 device=DEVICE)
+            enc = _profile_split(torch, lambda: E.encode(params, cfg, frames))
+            data[key] = {"runs": runs, "launches": counts[key],
+                         "encoder_profile": dict(frames=frames.shape[1], **enc)}
+        else:
+            frames = torch.randn((1, SEAMLESS_CHECK_FRAMES, cfg.d_model), generator=gen,
+                                 device=DEVICE)
+            batch_of = lambda seq: batch(frames, seq)   # noqa: E731
+            sync(torch)
+            reset_launch_counts()
+            sound = _decode_vs_prefill(torch, model, params, batch_of, prompt,
+                                       SEAMLESS_STEPS, pad=pad(frames))
+            sync(torch)
+            counts[key] = launch_counts()
+            check(counts[key]["flash_prefill_noncausal"] ==
+                  cfg.num_encoder_layers * (SEAMLESS_STEPS + 1),
+                  f"{tag}: K4 non-causal launches {counts[key]}")
+            bad = _decode_vs_prefill(torch, model, params, batch_of, prompt, SEAMLESS_STEPS,
+                                     plant=lambda c: _plant_self_kv(torch, c),
+                                     pad=pad(frames))
+            data[key] = {"frames": SEAMLESS_CHECK_FRAMES, "launches": counts[key],
+                         "decode_vs_prefill": _hold(tag, "decode vs prefill", sound, bad)}
+        emit("e2e_state", arch=SEAMLESS, dtype=str(dtype), **data[key])
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, data
+
+
+def phase_e2e_state(torch, env) -> tuple:
+    """Phase 10: mamba2-370m and recurrentgemma-2b served P->D through the
+    state path, seamless-m4t-large-v2's encoder on K4 non-causal. One model
+    on the card at a time. Returns (seamless bf16 counts, fp32 counts)."""
+    t0 = time.perf_counter()
+    for arch in STATE_RUNS:
+        _state_family(torch, arch)
+    counts, _ = _seamless(torch)
+    emit("e2e_state", done=True, seconds=time.perf_counter() - t0)
+    return counts["bf16"], counts["fp32"]
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -2238,6 +2678,7 @@ def main() -> int:
     tier_counts, host_route = phase_e2e_faults_tier(torch, env)
     fine_counts = phase_e2e_moe_tp(torch, env)
     phase_sim_calibrate(torch, env)
+    state_counts, state_fp32_counts = phase_e2e_state(torch, env)
     promote = host_route["promote"]
     rows["kv_transfer_host"] = dict(
         promote, bound_by="bytes",
@@ -2265,6 +2706,12 @@ def main() -> int:
                              "src/repro/kernels/kv_gather/kv_transfer.py:57", tier_counts),
         "kv_transfer_fine": ("src/repro_torch/csrc/kv_transfer.cu",
                              "src/repro/kernels/kv_gather/kv_transfer.py:57", fine_counts),
+        "flash_prefill_noncausal": ("src/repro_torch/csrc/flash_prefill.cu",
+                                    "src/repro/kernels/flash_prefill/flash_prefill.py:113",
+                                    state_counts),
+        "flash_prefill_noncausal_fp32": ("src/repro_torch/csrc/flash_prefill.cu",
+                                         "src/repro/kernels/flash_prefill/flash_prefill.py:113",
+                                         state_fp32_counts),
     }
     kernels = []
     for name, (source, rep, counts) in replaces.items():

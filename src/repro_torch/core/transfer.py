@@ -887,12 +887,17 @@ class StateBackend(TransferBackend):
     name = "state"
 
     def plan(self, req, src, dst) -> TransferJob:
-        raise NotImplementedError(
-            "state-family transfer is not ported yet: see ROADMAP.md item 11")
+        leaves = list(src.states[req.request_id].values())
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        dst.register_transfer_in(req, req.prompt_len + 1)
+        return TransferJob(request_id=req.request_id, backend=self.name,
+                           schedule="state", num_calls=len(leaves),
+                           num_bytes=nbytes, num_dispatches=1)
 
     def execute(self, job: TransferJob, src, dst) -> None:
-        raise NotImplementedError(
-            "state-family transfer is not ported yet: see ROADMAP.md item 11")
+        # the handoff moves the tensors by reference: both nodes' engines
+        # share one process (and, on the GPU, one card)
+        dst.import_state_by_id(job.request_id, src.export_state_by_id(job.request_id))
 
 
 class SimulatedBackend(TransferBackend):

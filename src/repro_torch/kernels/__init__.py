@@ -50,13 +50,15 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict:
     """Kernel launches counted by every wrapper since the last reset, plus
-    ``flash_prefill_suffix`` (the K4 launches in suffix mode) and
+    ``flash_prefill_suffix`` (the K4 launches in suffix mode),
+    ``flash_prefill_noncausal`` (those with ``causal=False``) and
     ``kv_transfer_host`` (K1's launches with a pinned host pool);
     ``kv_transfer_fine`` counts K1's launches over a sharded plan's fine
     rows."""
     w = _wrappers()
     counts = {name: fn.launches for name, fn in w.items()}
     counts["flash_prefill_suffix"] = w["flash_prefill"].suffix_launches
+    counts["flash_prefill_noncausal"] = w["flash_prefill"].noncausal_launches
     counts["kv_transfer_host"] = w["kv_transfer"].host_launches
     return counts
 
@@ -66,4 +68,5 @@ def reset_launch_counts() -> None:
     for fn in w.values():
         fn.launches = 0
     w["flash_prefill"].suffix_launches = 0
+    w["flash_prefill"].noncausal_launches = 0
     w["kv_transfer"].host_launches = 0

@@ -4,8 +4,10 @@
 its tensors lie on the CPU, and launches the CUDA kernel
 (``csrc/flash_prefill.cu``) when they lie on a GPU — there is no fallback
 between the two. The kernel masks its own ragged edges, so nothing is
-padded. ``flash_prefill_op.launches`` counts kernel launches and
-``flash_prefill_op.suffix_launches`` those of them with ``q_offset > 0``.
+padded. ``flash_prefill_op.launches`` counts kernel launches,
+``flash_prefill_op.suffix_launches`` those of them with ``q_offset > 0`` and
+``flash_prefill_op.noncausal_launches`` those with ``causal=False`` (the
+enc-dec encoder's bidirectional attention).
 
 The fp32 kernel takes a launch plan from ``launch_plan``, a pure function of
 the shapes and the card's SM count: how many warps (so how many (row, head)
@@ -139,6 +141,8 @@ def flash_prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_prefill_op.launches += 1
     if q_offset:
         flash_prefill_op.suffix_launches += 1
+    if not causal:
+        flash_prefill_op.noncausal_launches += 1
     return out
 
 
@@ -150,3 +154,4 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 flash_prefill_op.launches = 0
 flash_prefill_op.suffix_launches = 0
+flash_prefill_op.noncausal_launches = 0

@@ -1,5 +1,4 @@
-"""Uniform model API. Port of ``repro/models/api.py`` for the transformer
-families (dense, MoE, VLM and audio backbones).
+"""Uniform model API over the four families. Port of ``repro/models/api.py``.
 
 ``get_model(cfg)`` returns a :class:`Model` whose members close over the
 config — the protocol the serving engine talks to::
@@ -11,7 +10,8 @@ config — the protocol the serving engine talks to::
     decode_paged(params, token, pool, block_tables, lengths) -> (logits, pool)
     prefill_suffix(params, batch, prefix_k, prefix_v) -> (logits, cache)
 
-The state families raise ``NotImplementedError`` naming their ROADMAP item.
+The state families (ssm, hybrid, encdec) have neither of the last two, as
+in the reference: their caches are not paged.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, griffin, mamba2, transformer
 from repro_torch.models.common import ModelConfig
 
 Params = Dict[str, Any]
@@ -44,9 +44,12 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         return _transformer_model(cfg)
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 11")
+    if cfg.family == "ssm":
+        return _simple_model(cfg, mamba2)
+    if cfg.family == "hybrid":
+        return _simple_model(cfg, griffin)
+    if cfg.family == "encdec":
+        return _encdec_model(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -63,4 +66,25 @@ def _transformer_model(cfg: ModelConfig) -> Model:
                 p, cfg, tok, pool, bt, lens)),
         prefill_suffix=None if cfg.attn_window > 0 else (
             lambda p, b, pk, pv: transformer.prefill_suffix(p, cfg, b["tokens"], pk, pv)),
+    )
+
+
+def _simple_model(cfg: ModelConfig, mod) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
+        prefill=lambda p, b: mod.prefill(p, cfg, b["tokens"]),
+        decode=lambda p, tok, cache: mod.decode_step(p, cfg, tok, cache),
+        init_cache=lambda batch, max_len=0, **kw: mod.init_cache(cfg, batch, max_len, **kw),
+    )
+
+
+def _encdec_model(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, device=None: encdec.init_params(cfg, seed, device),
+        prefill=lambda p, b: encdec.prefill(p, cfg, b),
+        decode=lambda p, tok, cache: encdec.decode_step(p, cfg, tok, cache),
+        init_cache=lambda batch, max_len, enc_len=4096, **kw: encdec.init_cache(
+            cfg, batch, max_len, enc_len, **kw),
     )

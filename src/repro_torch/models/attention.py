@@ -267,3 +267,25 @@ def merge_inflight_token(q1: Tensor, k1: Tensor, v1: Tensor, out_old: Tensor,
            + p_self[..., None] * v1.float()[:, :, None, :])
     out = acc / torch.clamp(l_new, min=1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+def cross_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d)}
+
+
+def cross_attention(p: Dict[str, Tensor], x: Tensor, memory_kv: Tuple[Tensor, Tensor],
+                    cfg: ModelConfig, memory_mask: Optional[Tensor] = None) -> Tensor:
+    """x (B,S,D) attends over precomputed encoder K/V (B,T,KV,hd)."""
+    q = _proj(x, p["wq"])
+    k, v = memory_kv
+    mask = None if memory_mask is None else memory_mask[:, None, None, None, :]
+    return out_project(p, attend(q, k, v, mask))
+
+
+def encode_memory(p: Dict[str, Tensor], memory: Tensor) -> Tuple[Tensor, Tensor]:
+    """Project encoder output once into cross-attention K/V (per request)."""
+    return _proj(memory, p["wk"]), _proj(memory, p["wv"])

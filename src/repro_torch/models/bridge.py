@@ -17,6 +17,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.common import ModelConfig
 
+# Leaves the reference keeps in float32 whatever cfg.dtype is: mamba2's
+# A_log / dt_bias and the RG-LRU's lam / b_a / b_i.
+FP32_LEAVES = frozenset({"A_log", "dt_bias", "lam", "b_a", "b_i"})
+
 
 def to_torch(arr: np.ndarray, device=None) -> torch.Tensor:
     """One numpy leaf -> tensor, bit-exact (bfloat16 via a uint16 view)."""
@@ -40,18 +44,22 @@ def from_reference(params_np: Dict[str, Any], cfg: ModelConfig,
                    device=None) -> Dict[str, Any]:
     """Bridge a numpy copy of the reference's params to the port's tensors.
 
-    ``params_np`` has the reference's structure (``embed``, ``final_norm``,
-    ``layers`` -> {name: (L, ...)}, optional ``unembed``); leaves keep their
-    names, shapes and dtypes (``cfg.dtype`` must match the floating leaves).
+    ``params_np`` has the reference's structure, any nesting of dicts: the
+    transformer's ``embed`` / ``final_norm`` / ``layers`` -> {name: (L, ...)},
+    griffin's stacked ``groups`` and unrolled ``tail_*``, enc-dec's
+    ``encoder`` / ``decoder`` stacks. Leaves keep their names, shapes and
+    dtypes: a floating leaf must be ``cfg.dtype``, or float32 where the
+    reference keeps it so (:data:`FP32_LEAVES`).
     """
     dev = resolve_device(device)
 
-    def conv(tree):
+    def conv(tree, name=""):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, k) for k, v in tree.items()}
         t = to_torch(tree, dev)
-        if t.is_floating_point() and t.dtype != cfg.dtype:
-            raise TypeError(f"param dtype {t.dtype} != cfg.dtype {cfg.dtype}")
+        want = torch.float32 if name in FP32_LEAVES else cfg.dtype
+        if t.is_floating_point() and t.dtype != want:
+            raise TypeError(f"param {name!r} dtype {t.dtype} != {want}")
         return t
 
     return conv(params_np)

@@ -69,6 +69,27 @@ class ModelConfig:
     tp_reduce_bf16: bool = False
 
     # -- derived -------------------------------------------------------------
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(1, self.num_kv_heads)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """SSM, or hybrid with a bounded attention window."""
+        return self.family == "ssm" or (self.family == "hybrid" and self.attn_window > 0)
+
     def kv_bytes_per_token(self) -> int:
         """KV-cache bytes per token (what the P->D transfer moves)."""
         if self.family == "ssm":
@@ -87,15 +108,28 @@ class ModelConfig:
         return self.num_layers
 
     def num_params(self) -> int:
-        """Analytic parameter count (dense / moe / vlm families)."""
+        """Analytic parameter count (the reference's, family by family)."""
         d, v = self.d_model, self.vocab_size
+        emb = v * d
+        if self.family == "ssm":
+            di, n, h = self.ssm_d_inner, self.ssm_state, self.ssm_heads
+            per = d * (2 * di + 2 * n + h) + di * d + di + h  # in/x/B/C/dt proj + out
+            return emb + self.num_layers * per
         attn = d * self.num_heads * self.head_dim + 2 * d * self.num_kv_heads * self.head_dim \
             + self.num_heads * self.head_dim * d
         if self.family == "moe":
             ff = self.num_experts * 3 * d * (self.moe_d_ff or self.d_ff) + d * self.num_experts
         else:
             ff = 3 * d * self.d_ff
-        return v * d + self.num_layers * (attn + ff)
+        per = attn + ff
+        if self.family == "hybrid":
+            rec = 3 * d * self.lru_width + 2 * self.lru_width  # coarse RG-LRU block
+            n_attn = self.num_attention_layers()
+            return emb + n_attn * per + (self.num_layers - n_attn) * (rec + 3 * d * self.d_ff)
+        if self.family == "encdec":
+            cross = d * self.num_heads * self.head_dim * 2 + 2 * d * self.num_kv_heads * self.head_dim
+            return emb + self.num_encoder_layers * per + self.num_layers * (per + cross)
+        return emb + self.num_layers * per
 
     def active_params(self) -> int:
         """Active params per token (MoE: only top_k experts count)."""

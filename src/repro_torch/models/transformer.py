@@ -30,9 +30,8 @@ Tensor = torch.Tensor
 
 def _require_transformer(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: see ROADMAP.md item 11 "
-            "(state families)")
+        raise ValueError(f"family {cfg.family!r} is not a transformer: its model is "
+                         "models/mamba2.py, griffin.py or encdec.py (models/api.get_model)")
 
 
 # ---------------------------------------------------------------------------

@@ -144,7 +144,7 @@ def load_cluster(cluster, path: str) -> dict:
                                           cycles=node.get("priority_cycles_left", 0))
         if engine.paged and f"pool_{nid}" in pools:
             engine.kv.pool.copy_(torch.from_numpy(pools[f"pool_{nid}"]))
-        dtype = engine.kv.spec.dtype
+        dtype = engine.cfg.dtype        # the pool's dtype (spilled K/V: paged only)
         engine.spilled = {
             int(rid_s): (torch.from_numpy(pools[f"spill_k_{nid}_{rid_s}"]).to(dtype),
                          torch.from_numpy(pools[f"spill_v_{nid}_{rid_s}"]).to(dtype),

@@ -419,6 +419,9 @@ class PDCluster:
         if dst.scheduler.bm.owns(req.request_id):
             dst.scheduler.bm.free(req.request_id)
         src.scheduler.sending_done(req, free=True)
+        # the state path's source still holds the state that never moved:
+        # drop it too (the reference keeps it for good; ROADMAP queue 3)
+        src.states.pop(req.request_id, None)
         self.degraded_to_recompute += 1
         target = dst if (dst.node_id not in self._dead and
                          self.controller.nodes[dst.node_id].alive) else src
@@ -753,6 +756,7 @@ class PDCluster:
             tm.clear()
         engine.scheduler.bm.release_all()
         engine.spilled.clear()
+        engine.states.clear()
 
     def checkpoint(self) -> dict:
         from repro_torch.serving.checkpoint import cluster_state

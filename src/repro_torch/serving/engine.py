@@ -1,13 +1,18 @@
 """Per-node inference engine: executes the hybrid scheduler's decisions with
-real PyTorch compute against the paged pool. Port of
-``repro/serving/engine.py`` (paged path).
+real PyTorch compute. Port of ``repro/serving/engine.py``.
 
-Paged KV path (dense transformer family): prefill writes pages; decode runs
+Two request-state transports, as in the reference:
+
+* paged KV path (transformer families): prefill writes pages; decode runs
 the ZERO-GATHER step — one ``Model.decode_paged`` call per cycle that reads
 pages in place through the paged-attention kernel (K3) and appends the
 batch's new K/V with one fused K1 launch, the pool updated in place. The
 gather-dense bridge survives as the oracle (``paged_decode="dense"``) and
 as the path for windowed attention.
+* state path (ssm / hybrid): the request's cache dict is held whole in
+  ``states`` and shipped whole (``core/transfer.StateBackend``); decode runs
+  one ``Model.decode`` call per request. No chunked prefill, no spill and
+  no prefix reuse: those need pages.
 
 "One dispatch per decode cycle" keeps the reference's meaning: one
 host-issued step call (``decode_dispatches`` counts those). In eager torch
@@ -18,7 +23,11 @@ cache — is ROADMAP work.
 Ragged batches are padded to power-of-two buckets in BOTH batch size and
 block-table width (pad lanes replicate lane 0, so their duplicate append
 descriptors are idempotent); ``decode_compile_variants`` counts the buckets
-seen. State families are not ported (ROADMAP item 11).
+seen.
+
+The enc-dec family is refused: its prefill needs the request's encoder
+frames, which a request does not carry. The reference fails the same way at
+its first prefill (``KeyError: 'frames'``); see ROADMAP.md queue 3.
 
 ``tp_degree > 1`` runs the model sharded over a model axis (TP for
 attention and MLP, EP for MoE experts) on the one device, with the pool
@@ -35,12 +44,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.block_manager import BlockManager
 from repro_torch.core.scheduler.hybrid_scheduler import HybridScheduler, ScheduleDecision
 from repro_torch.distributed import tp as tp_mod
 from repro_torch.models.api import Model, get_model
 from repro_torch.models.common import ModelConfig
 from repro_torch.serving.kv_cache import PagedKVCache, ShardedKVCache, spec_for_model
 from repro_torch.serving.request import Request
+
+PAGED_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _next_pow2(n: int) -> int:
@@ -68,7 +80,11 @@ class NodeEngine:
         self.model: Model = get_model(cfg)
         self.params = params
         self.max_model_len = max_model_len
-        self.paged = True             # KV lives in the paged pool (backend_for_engine)
+        if cfg.family == "encdec":
+            raise ValueError(
+                "the enc-dec family cannot be served: its prefill needs encoder "
+                "frames, which requests do not carry (ROADMAP.md queue 3)")
+        self.paged = cfg.family in PAGED_FAMILIES
         # -- mesh parallelism ---------------------------------------------------------
         # tp_degree > 1: the model runs sharded over a model axis, the pool
         # split into per-kv-head-slice shard pools (distributed/tp.py).
@@ -77,43 +93,54 @@ class NodeEngine:
         self.shard_params: Optional[List] = None
         self.merged_combine = None
         if tp_degree > 1:
+            if not self.paged:
+                raise ValueError("tp_degree > 1 requires a paged-KV family, "
+                                 f"got {cfg.family!r}")
             tp_mod.validate_tp(cfg, tp_degree)
             self.shard_params = tp_mod.shard_params(params, cfg, tp_degree)
             # the combine weights concatenated once, not once a step
             self.merged_combine = tp_mod.merged_combine(self.shard_params, cfg)
             self.kv = ShardedKVCache(spec_for_model(cfg, num_blocks), tp_degree,
                                      allocator, device=self.device)
-        else:
+        elif self.paged:
             self.kv = PagedKVCache(spec_for_model(cfg, num_blocks), allocator,
                                    device=self.device)
+        else:
+            # state path: a block manager still gates admission (token
+            # budget), but the state lives in a per-request dict store
+            self.kv = None
+        bm = self.kv.bm if self.paged else BlockManager(num_blocks, cfg.block_size, allocator)
+        self.states: Dict[int, Dict[str, torch.Tensor]] = {}   # request_id -> state
         # Chunked prefill needs the suffix data plane: an intermediate chunk
         # is exactly a suffix prefill (q_offset = tokens done) over the pool.
-        self.supports_chunked_prefill = self.model.prefill_suffix is not None
+        self.supports_chunked_prefill = self.paged and self.model.prefill_suffix is not None
         self.scheduler = HybridScheduler(
-            node_id, self.kv.bm, max_batch_tokens=max_batch_tokens,
+            node_id, bm, max_batch_tokens=max_batch_tokens,
             chunked_prefill=chunked_prefill and self.supports_chunked_prefill,
             prefill_chunk_tokens=prefill_chunk_tokens)
         # -- spill path (decode memory pressure) --------------------------------------
         # request_id -> (k, v, length) saved host-side when the scheduler
         # preempts a decode request; restored into fresh blocks on resume.
+        # Paged engines only: the state path keeps its dict in ``states``.
         self.spilled: Dict[int, Tuple[torch.Tensor, torch.Tensor, int]] = {}
-        self.scheduler.on_spill = self._spill_kv
-        self.scheduler.on_resume = self._restore_kv
-        self.scheduler.on_discard = lambda req: self.spilled.pop(req.request_id, None)
+        if self.paged:
+            self.scheduler.on_spill = self._spill_kv
+            self.scheduler.on_resume = self._restore_kv
+            self.scheduler.on_discard = lambda req: self.spilled.pop(req.request_id, None)
         # -- zero-gather decode plane ------------------------------------------------
         # paged_decode: "auto" (kernel when supported), "kernel", "dense" (oracle).
         if paged_decode not in ("auto", "kernel", "dense"):
             raise ValueError(f"paged_decode must be auto|kernel|dense, got {paged_decode!r}")
-        kernel_ok = self.model.decode_paged is not None
+        kernel_ok = self.paged and self.model.decode_paged is not None
         if paged_decode == "kernel" and not kernel_ok:
             raise ValueError("paged_decode='kernel' unsupported for this config "
-                             "(windowed attention)")
+                             "(state family or windowed attention)")
         self.use_paged_decode = kernel_ok and paged_decode != "dense"
         self.decode_steps = 0          # decode cycles executed
         self.decode_dispatches = 0     # host-issued step calls those cycles made
         self._decode_cache_keys: Set[Tuple[int, int]] = set()   # buckets seen
         # -- prefix-reuse data plane ---------------------------------------------------
-        self.supports_prefix_reuse = self.model.prefill_suffix is not None
+        self.supports_prefix_reuse = self.paged and self.model.prefill_suffix is not None
         # Optional repro_torch.serving.host_tier.TierManager, attached by
         # the cluster when host_tier_blocks > 0 (reuse-capable engines
         # only): the node's host-DRAM tier for demoted prefix blocks.
@@ -187,8 +214,11 @@ class NodeEngine:
                         self.shard_params, self.cfg, tokens, self.merged_combine)
                 else:
                     logits, cache = self.model.prefill(self.params, {"tokens": tokens})
-                self.kv.write_prefill(req.request_id, cache["k"][:, 0],
-                                      cache["v"][:, 0], chunk)
+                if self.paged:
+                    self.kv.write_prefill(req.request_id, cache["k"][:, 0],
+                                          cache["v"][:, 0], chunk)
+                else:
+                    self.states[req.request_id] = cache
             if final and not req.output_tokens:
                 # only the last chunk's last position predicts the next token;
                 # a recovery prefill (output_tokens non-empty) keeps its token
@@ -228,12 +258,13 @@ class NodeEngine:
         if not batch:
             return []
         finished: List[Request] = []
-        decoded = self._decode_paged(batch)
+        decoded = self._decode_paged(batch) if self.paged else self._decode_state(batch)
         for req in batch:
             last = req.output_tokens[-1]
             eos = req.sampling.eos_token_id
             if req.num_output >= req.sampling.max_new_tokens or (eos is not None and last == eos):
                 finished.append(req)
+                self.states.pop(req.request_id, None)
                 self.scheduler.decode_finished(req)
         # bandwidth pressure = fraction of the admitted batch that decoded
         self.scheduler.last_bandwidth_util = decoded / max(1, len(batch))
@@ -319,6 +350,23 @@ class NodeEngine:
         self.decode_dispatches += step_dispatches
         return len(batch)
 
+    def _decode_state(self, batch: List[Request]) -> int:
+        """One decode per request on its own state (the state caches are
+        per-request dicts, not a batched pool)."""
+        n = len(batch)
+        for r in batch:
+            tok = torch.tensor([r.output_tokens[-1]], dtype=torch.int32, device=self.device)
+            logits, self.states[r.request_id] = self.model.decode(
+                self.params, tok, self.states[r.request_id])
+            r.output_tokens.append(int(torch.argmax(logits[0])))
+            r.decode_steps += 1
+            # as in the reference: a request is charged every dispatch of
+            # the cycles it rode in, and this path runs one per request
+            r.decode_dispatches += n
+        self.decode_steps += 1
+        self.decode_dispatches += n
+        return n
+
     # -- spill path (scheduler hooks) ------------------------------------------------
     def _spill_kv(self, req: Request) -> None:
         """Save a preempted request's KV host-side before its blocks free.
@@ -339,14 +387,32 @@ class NodeEngine:
                               length)
 
     # -- transfer hooks (TransferBackend ports; see core/transfer.py) -------------------
+    def export_state(self, req: Request):
+        """State-path transfer payload (shipped whole, one segment)."""
+        return self.export_state_by_id(req.request_id)
+
+    def import_state(self, req: Request, state) -> None:
+        self.import_state_by_id(req.request_id, state)
+
+    def export_state_by_id(self, request_id: int):
+        return self.states.pop(request_id)
+
+    def import_state_by_id(self, request_id: int, state) -> None:
+        self.states[request_id] = state
+
     def register_transfer_in(self, req: Request, num_tokens: int) -> List[int]:
         """Destination-side block registration ahead of a paged transfer."""
         return self.scheduler.bm.register(req.request_id, num_tokens)
 
     # -- lifecycle -----------------------------------------------------------------------
     def release(self, req: Request) -> bool:
-        """Drop every trace of a request from this node (cancel path)."""
-        return self.scheduler.remove_request(req)
+        """Drop every trace of a request from this node (cancel path): its
+        blocks, its place in every scheduler queue and any state-path state.
+        Returns True if anything was released."""
+        removed = self.scheduler.remove_request(req)
+        if self.states.pop(req.request_id, None) is not None:
+            removed = True
+        return removed
 
     # -- cycle -----------------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> Tuple[List[Request], List[Request]]:

@@ -21,7 +21,8 @@ def test_import_every_module_without_jax():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "need = {'repro_torch.models.moe', 'repro_torch.distributed.sharding',\n"
-        "        'repro_torch.distributed.tp'}\n"
+        "        'repro_torch.distributed.tp', 'repro_torch.models.mamba2',\n"
+        "        'repro_torch.models.griffin', 'repro_torch.models.encdec'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -99,11 +100,15 @@ def test_out_of_scope_features_name_their_roadmap_item():
 
     cfg = get_smoke_config("qwen3-1.7b")
     params = T.init_params(cfg, 0, device="cpu")
-    # the state families are item 11
-    for arch in ("mamba2-370m", "recurrentgemma-2b", "seamless-m4t-large-v2"):
-        for get in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                get(arch)
+    # item 11 is ported: the state families' configs resolve, with the
+    # reference's families, and build their models (the no-JAX import
+    # check above walks their modules too)
+    from repro_torch.models.api import get_model
+
+    for arch, family in (("mamba2-370m", "ssm"), ("recurrentgemma-2b", "hybrid"),
+                         ("seamless-m4t-large-v2", "encdec")):
+        assert get_config(arch).family == get_smoke_config(arch).family == family
+        assert get_model(get_smoke_config(arch)).decode_paged is None
     # item 9 is ported: MoE, VLM and tensor/expert-parallel serving
     for arch, family in (("granite-moe-1b-a400m", "moe"), ("llama4-scout-17b-a16e", "moe"),
                          ("llava-next-34b", "vlm")):
