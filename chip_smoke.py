@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FlowKV P->D serving path on one NVIDIA H100.
+"""Drive the PyTorch port's FlowKV P->D serving path, and its training
+path, on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -150,6 +151,31 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  and seamless's attention is tempered (STATE_TEMPERED).
                  The kernels phase holds K4 non-causal at seamless's heads
                  (S = T = 1500 and 4096, 16/16, hd 64) in both dtypes.
+11. ``train``  — the training path, one JSON line a sub-phase.
+                 ``train_main``: full-width, full-depth qwen3-1.7b in
+                 bfloat16 over fp32 masters, B=2, S=1024, 8 steps of
+                 launch/train.py's loop on the copy task (one batch from
+                 seed 0, lr TRAIN_LR, warm-up 1): losses finite and falling,
+                 step 8; the state saved at step 4 (build/train_ckpt/,
+                 deleted after), loaded into an abstract_train_state
+                 template on the card bit for bit, and steps 5-8 resumed
+                 from it within 1e-3 of the uninterrupted losses; the median
+                 step wall of steps 2-8, tokens/s, MFU, peak memory, and one
+                 step's device time by part (GEMMs, attention,
+                 cross-entropy, optimizer, rest) beside the FLOP and
+                 optimizer-bytes bounds. ``train_flash``: S=2048 (the
+                 chunked flash path), B=1, remat "full", one full-depth step
+                 (finite loss, finite non-zero grad norm); then 4 layers
+                 under remat none / full / dots, losses within 1e-6 and grad
+                 norms within 1e-4 relative, each one's peak memory.
+                 ``train_parity``: one fp32 step of qwen3-1.7b,
+                 granite-moe-1b-a400m, mamba2-370m, recurrentgemma-2b and
+                 seamless-m4t-large-v2 at full width (cut in depth) on the
+                 card against the same step on the CPU from the same
+                 weights: loss within 1e-5 relative, every grad leaf within
+                 1e-3 of its max |g|, the updated master within 1e-6;
+                 granite's, recurrentgemma's and seamless's attention
+                 tempered. K4 and K3 launch no time in the whole phase.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -161,6 +187,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -2653,6 +2680,350 @@ def phase_e2e_state(torch, env) -> tuple:
     return counts["bf16"], counts["fp32"]
 
 # ---------------------------------------------------------------------------
+# train: the training path (loss and forward_train, AdamW over fp32 masters,
+# the train step, the train-state checkpoint, launch/train.py's loop)
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S = 2, 1024             # train_main: one fixed copy-task batch
+TRAIN_STEPS, TRAIN_SAVE_AT = 8, 4
+TRAIN_LR = 1e-4                        # warm-up of 1 step
+TRAIN_RESUME_REL = 1e-3                # steps 5-8 resumed vs uninterrupted
+FLASH_S = 2048                         # train_flash: above flash_threshold (1024)
+FLASH_REMAT_LAYERS = 4
+REMAT_LOSS_REL, REMAT_GNORM_REL = 1e-6, 1e-4
+# train_parity: one fp32 step on the card and on the CPU from the same
+# weights, each family at full width: (arch, layers, batch, tokens, config
+# overrides). seamless: 2 + 2 layers, 256 encoder frames, 32 decoder tokens.
+PARITY = (("qwen3-1.7b", 2, 1, 256, {}),
+          ("granite-moe-1b-a400m", 2, 1, 256, {"moe_dispatch": "dense"}),
+          ("mamba2-370m", 2, 1, 300, {}),
+          ("recurrentgemma-2b", 5, 1, 256, {}),
+          ("seamless-m4t-large-v2", 2, 1, 32, {"num_encoder_layers": 2}))
+PARITY_FRAMES = 256
+# Adam's first step moves an element by lr * g / (|g| + eps): at the default
+# eps = 1e-8 that is lr * sign(g), and an element whose gradient sits at the
+# fp32 noise floor flips sign between the card and the CPU (a 2 lr step).
+# eps = 1e-3 makes the update of a small gradient lr / eps * g = 0.1 g, so
+# the master gate (1e-6 absolute) reads the gradient and the update rule,
+# while the update itself reaches lr = 1e-4.
+PARITY_OPT = dict(lr=1e-4, eps=1e-3, warmup_steps=1)
+PARITY_LOSS_REL, PARITY_GRAD_REL, PARITY_MASTER_ABS = 1e-5, 1e-3, 1e-6
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# ops whose kernels make each part of a train step's device time: a kernel
+# belongs to the first part one of whose ops launched it or encloses that
+# op (forward ops and their autograd nodes); other GEMM kernels are "gemm",
+# the remaining kernels "rest". "optimizer" is a record_function range
+# around OPT.apply_updates.
+TRAIN_PARTS = (
+    ("optimizer", {"optimizer"}),
+    ("attention", {"aten::bmm", "aten::_softmax", "aten::_softmax_backward_data",
+                   "aten::masked_fill", "BmmBackward0", "SoftmaxBackward0",
+                   "MaskedFillBackward0"}),
+    ("cross_entropy", {"aten::logsumexp", "aten::gather", "LogsumexpBackward0",
+                       "GatherBackward0"}))
+GEMM_FRAGS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def _bits_equal(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype in ints:
+        return torch.equal(a.view(ints[a.dtype]), b.view(ints[a.dtype]))
+    return torch.equal(a, b)
+
+
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_step_split(torch, step_fn, state, batch) -> tuple:
+    """One train step under torch.profiler: its wall and its device time by
+    part (TRAIN_PARTS), with the top kernels. Returns (state, summary)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.training import optimizer as OPT
+
+    orig = OPT.apply_updates
+
+    def marked(*a, **kw):
+        with record_function("optimizer"):
+            return orig(*a, **kw)
+
+    with _patched(OPT, "apply_updates", marked):
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            sync(torch)
+            wall = time.perf_counter() - t0
+    parts = dict.fromkeys(("gemm", "attention", "cross_entropy", "optimizer", "rest"), 0.0)
+    for ev in prof.events():
+        kernels = getattr(ev, "kernels", None) or []
+        if not kernels:
+            continue
+        names, e = [], ev
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        part = next((p for p, ops in TRAIN_PARTS if any(n in ops for n in names)), None)
+        for k in kernels:
+            p = part or ("gemm" if any(f in k.name.lower() for f in GEMM_FRAGS) else "rest")
+            parts[p] += k.duration
+    by_kernel = _device_by_kernel(prof)
+    total = sum(by_kernel.values())
+    check(total > 0, "train step: the profiler saw no device time")
+    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:8]
+    return state, dict(profiled_wall_ms=wall * 1e3, device_ms=total / 1e3,
+                       split_ms={k: v / 1e3 for k, v in parts.items()},
+                       split_covers=sum(parts.values()) / total,
+                       device_busy_share=(total / 1e6) / wall,
+                       top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+
+
+def _train_main(torch, env) -> None:
+    """Full-width, full-depth qwen3-1.7b, bf16 over fp32 masters, B=2,
+    S=1024: 8 steps of launch/train.py's loop on the copy task, saved at
+    step 4, loaded into an abstract template on the card, resumed."""
+    import numpy as np
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.launch import train as LT
+    from repro_torch.models.api import get_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serving import checkpoint as CK
+    from repro_torch.training import optimizer as OPT
+
+    cfg = get_config(ARCH)
+    model = get_model(cfg)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = OPT.init_state(model.init(SEED, DEVICE))
+    step_fn, _ = ST.make_train_step(model, opt_cfg=OPT.AdamWConfig(lr=TRAIN_LR,
+                                                                  warmup_steps=1))
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to(DEVICE)
+    batch = {"tokens": toks, "labels": toks}          # the copy task
+    walls, log = [], []
+
+    def timed(st, b):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = step_fn(st, b)
+        sync(torch)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    state, losses = LT.train_loop(state, timed, lambda: batch, 0, TRAIN_SAVE_AT, log=log.append)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = CK.save_train_state(state, TRAIN_SAVE_AT, str(TRAIN_CKPT_DIR))
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = pathlib.Path(path).stat().st_size
+    t0 = time.perf_counter()
+    loaded = CK.load_train_state(ST.abstract_train_state(model), path, device=DEVICE)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    leaves, saved = tree_leaves(loaded), tree_leaves(state)
+    check(len(leaves) == len(saved) and all(_bits_equal(torch, a, b)
+                                            for a, b in zip(leaves, saved)),
+          "train_main: the loaded train state differs from the saved one")
+    del loaded, leaves, saved
+    _free(torch)
+    state, tail = LT.train_loop(state, timed, lambda: batch, TRAIN_SAVE_AT,
+                                TRAIN_STEPS - TRAIN_SAVE_AT, log=log.append)
+    losses += tail
+    peak = torch.cuda.max_memory_allocated()
+    check(int(state["step"]) == TRAIN_STEPS, f"train_main: step {int(state['step'])}")
+    check(all(math.isfinite(x) for x in losses), f"train_main: losses {losses}")
+    check(losses[-1] < losses[0], f"train_main: the loss did not fall: {losses}")
+    state, split = _train_step_split(torch, step_fn, state, batch)
+    del state
+    _free(torch)
+    resumed = CK.load_train_state(ST.abstract_train_state(model), path, device=DEVICE)
+    resumed, losses_resumed = LT.train_loop(resumed, step_fn, lambda: batch, TRAIN_SAVE_AT,
+                                            TRAIN_STEPS - TRAIN_SAVE_AT, log=log.append)
+    check(int(resumed["step"]) == TRAIN_STEPS, "train_main: the resumed run's step")
+    del resumed
+    _free(torch)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    spread = [abs(a - b) / abs(b) for a, b in zip(losses_resumed, losses[TRAIN_SAVE_AT:])]
+    check(max(spread) <= TRAIN_RESUME_REL,
+          f"train_main: resumed losses {losses_resumed} vs {losses[TRAIN_SAVE_AT:]}")
+    n_params = cfg.num_params()
+    active = cfg.active_params()
+    tokens = TRAIN_B * TRAIN_S
+    wall = statistics.median(walls[1:TRAIN_STEPS])          # steps 2-8
+    peaks = env["peaks"]
+    step_bound, _ = bound_ms(0, 6 * active * tokens, peaks, "bf16")
+    opt_bound, _ = bound_ms(30 * n_params, 0, peaks, "bf16")
+    emit("train", sub="train_main", arch=ARCH, dtype="bfloat16 over fp32 masters",
+         batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR, warmup_steps=1, params=n_params,
+         losses=losses, losses_resumed=losses_resumed, resume_max_rel_diff=max(spread),
+         resume_limit=TRAIN_RESUME_REL, log=log, step_walls_ms=[w * 1e3 for w in walls],
+         median_step_wall_ms=wall * 1e3, tokens_per_s=tokens / wall,
+         mfu=6 * active * tokens / (wall * peaks["bf16"]),
+         step_flops_bound_ms=step_bound, optimizer_bytes_bound_ms=opt_bound,
+         peak_memory_bytes=peak, checkpoint_bytes=ckpt_bytes, save_s=save_s, load_s=load_s,
+         loaded_bit_identical=True, step_split=split)
+
+
+def _train_flash(torch, env) -> None:
+    """qwen3-1.7b at S=2048 (the chunked flash path), B=1: one full-depth
+    step under remat "full"; then 4 layers under remat none / full / dots."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.models.api import get_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import optimizer as OPT
+
+    toks = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, get_config(ARCH).vocab_size, (1, FLASH_S))).to(DEVICE)
+    batch = {"tokens": toks, "labels": toks}
+    opt = OPT.AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    cfg = dataclasses.replace(get_config(ARCH), remat="full")
+    model = get_model(cfg)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = OPT.init_state(model.init(SEED, DEVICE))
+    sync(torch)
+    t0 = time.perf_counter()
+    state, met = ST.make_train_step(model, opt_cfg=opt)[0](state, batch)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    check(math.isfinite(loss), f"train_flash: loss {loss}")
+    check(math.isfinite(gnorm) and gnorm > 0, f"train_flash: grad norm {gnorm}")
+    full_depth = dict(loss=loss, grad_norm=gnorm, wall_ms=wall * 1e3,
+                      peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del state, met
+    _free(torch)
+    cfg4 = dataclasses.replace(get_config(ARCH), num_layers=FLASH_REMAT_LAYERS)
+    state0 = OPT.init_state(get_model(cfg4).init(SEED, DEVICE))
+    remat = {}
+    for mode in ("none", "full", "dots"):
+        st = tree_map(lambda t: t.clone(), state0)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step = ST.make_train_step(get_model(dataclasses.replace(cfg4, remat=mode)),
+                                  opt_cfg=opt)[0]
+        st, met = step(st, batch)
+        remat[mode] = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                           peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                           peak_above_state_bytes=torch.cuda.max_memory_allocated() - base)
+        del st, met
+    del state0
+    _free(torch)
+    for mode in ("full", "dots"):
+        dl = abs(remat[mode]["loss"] - remat["none"]["loss"]) / abs(remat["none"]["loss"])
+        dg = abs(remat[mode]["grad_norm"] - remat["none"]["grad_norm"]) / remat["none"]["grad_norm"]
+        remat[mode].update(loss_rel_diff=dl, grad_norm_rel_diff=dg)
+        check(dl <= REMAT_LOSS_REL, f"train_flash: remat {mode} loss off by {dl}")
+        check(dg <= REMAT_GNORM_REL, f"train_flash: remat {mode} grad norm off by {dg}")
+    emit("train", sub="train_flash", arch=ARCH, seq=FLASH_S, batch=1, full_depth_remat_full=full_depth,
+         remat_layers=FLASH_REMAT_LAYERS, remat=remat,
+         limits=dict(loss_rel=REMAT_LOSS_REL, grad_norm_rel=REMAT_GNORM_REL))
+
+
+def _parity_params(torch, cfg):
+    """The port's init from SEED on the CPU, with the attention tempered where
+    random attention at the init's scale is chaotic (MOE_ATTN_SCALE,
+    STATE_TEMPERED)."""
+    from repro_torch.models.api import get_model
+
+    params = get_model(cfg).init(SEED, "cpu")
+    if cfg.family == "moe":
+        for name, factor in MOE_ATTN_SCALE.items():
+            params["layers"][name].mul_(factor)
+    elif cfg.family in STATE_TEMPERED:
+        _temper_attention(torch, cfg, params)
+    return params
+
+
+def _train_parity(torch, env) -> None:
+    """One fp32 train step of each family on the card and on the CPU from the
+    same weights and batch."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.models.api import get_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import optimizer as OPT
+
+    opt = OPT.AdamWConfig(**PARITY_OPT)
+    rows = []
+    for arch, layers, b, s, over in PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=torch.float32,
+                                  **over)
+        model = get_model(cfg)
+        rng = np.random.RandomState(SEED)
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(
+                rng.randn(b, PARITY_FRAMES, cfg.d_model).astype(np.float32))
+        runs = {}
+        cpu_state = OPT.init_state(_parity_params(torch, cfg))
+        card_state = tree_map(lambda t: t.to(DEVICE), cpu_state)
+        for dev, st in (("cpu", cpu_state), (DEVICE, card_state)):
+            before = [t.clone() for t in tree_leaves(st["master"])] if dev == "cpu" else None
+            bt = {k: v.to(dev) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            loss, grads = ST.loss_and_grads(model, st["master"], bt)
+            st, _ = OPT.apply_updates(st, grads, opt, compute_dtype=cfg.dtype)
+            if dev != "cpu":
+                sync(torch)
+            runs[dev] = dict(loss=float(loss), wall_s=time.perf_counter() - t0,
+                             grads=[g.cpu() for g in tree_leaves(grads)],
+                             master=[w.cpu() for w in tree_leaves(st["master"])])
+            if before is not None:
+                runs[dev]["update_max"] = max(float((w - w0).abs().max()) for w, w0
+                                              in zip(runs[dev]["master"], before))
+            del st, grads
+        del cpu_state, card_state
+        _free(torch)
+        c, g = runs["cpu"], runs[DEVICE]
+        loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+        grad_rel = max(float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                       for a, w in zip(g["grads"], c["grads"]))
+        master_abs = max(float((a - w).abs().max()) for a, w in zip(g["master"], c["master"]))
+        row = dict(arch=arch, layers=layers, batch=b, tokens=s, family=cfg.family,
+                   tempered=cfg.family == "moe" or cfg.family in STATE_TEMPERED,
+                   loss_cpu=c["loss"], loss_card=g["loss"], loss_rel_diff=loss_rel,
+                   grad_max_rel_diff=grad_rel, master_max_abs_diff=master_abs,
+                   master_update_max=c["update_max"], wall_cpu_s=c["wall_s"],
+                   wall_card_s=g["wall_s"])
+        rows.append(row)
+        check(loss_rel <= PARITY_LOSS_REL, f"train_parity {arch}: loss off by {loss_rel}")
+        check(grad_rel <= PARITY_GRAD_REL, f"train_parity {arch}: a grad off by {grad_rel}")
+        check(master_abs <= PARITY_MASTER_ABS,
+              f"train_parity {arch}: master off by {master_abs}")
+        del runs
+    emit("train", sub="train_parity", opt=PARITY_OPT, rows=rows,
+         limits=dict(loss_rel=PARITY_LOSS_REL, grad_rel=PARITY_GRAD_REL,
+                     master_abs=PARITY_MASTER_ABS))
+
+
+def phase_train(torch, env) -> None:
+    """Phase 11: the training path on the card; training never reaches K4
+    (no backward) or K3."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    _train_main(torch, env)
+    _train_flash(torch, env)
+    _train_parity(torch, env)
+    after = kernels.launch_counts()
+    moved = {k: after[k] - before[k] for k in ("flash_prefill", "paged_decode_attention")
+             if after[k] != before[k]}
+    check(not moved, f"train: K4 / K3 launched during training: {moved}")
+    emit("train", done=True, k4_k3_launches=0, seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -2679,6 +3050,7 @@ def main() -> int:
     fine_counts = phase_e2e_moe_tp(torch, env)
     phase_sim_calibrate(torch, env)
     state_counts, state_fp32_counts = phase_e2e_state(torch, env)
+    phase_train(torch, env)
     promote = host_route["promote"]
     rows["kv_transfer_host"] = dict(
         promote, bound_by="bytes",

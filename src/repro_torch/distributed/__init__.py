@@ -1,2 +1,3 @@
-"""Tensor/expert-parallel execution of the serving paths on one device.
-Port of ``repro/distributed`` (only what ``tp.py`` needs)."""
+"""Tensor/expert-parallel execution of the serving paths on one device,
+and the step functions (train, prefill, decode). Port of
+``repro/distributed``."""

@@ -1,6 +1,7 @@
 """Logical-axis -> mesh-axis rules with divisibility fallbacks. A
 framework-free copy of the part of ``repro/distributed/sharding.py`` that
-``tp.py`` needs: the rule table, an abstract mesh and ``spec_for``.
+``tp.py`` and ``steps.py`` need: the rule table, an abstract mesh,
+``spec_for`` and ``tree_specs``.
 
 Models annotate every parameter dim with a *logical* axis name
 (``transformer.param_axes``); ``spec_for`` walks a tensor's dims in order
@@ -86,3 +87,12 @@ def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
     while parts and parts[-1] is None:
         parts.pop()
     return tuple(parts)
+
+
+def tree_specs(shapes_tree, axes_tree, mesh: AbstractMesh,
+               rules: Optional[Dict] = None):
+    """``spec_for`` over parallel nested dicts: shapes (anything with a
+    ``.shape``: tensors, meta tensors) and logical axes."""
+    if isinstance(shapes_tree, dict):
+        return {k: tree_specs(v, axes_tree[k], mesh, rules) for k, v in shapes_tree.items()}
+    return spec_for(tuple(shapes_tree.shape), axes_tree, mesh, rules)

@@ -21,6 +21,21 @@ from __future__ import annotations
 _TICKETS: dict = {}             # (device index, stream) -> zeroed int32 tickets
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel call: K3 and K4 have no
+    backward, and a CUDA kernel's output has no ``grad_fn``, so a gradient
+    through them would be lost without an error on the card (on the CPU
+    the plain version would differentiate). Checked on every device, so a
+    CPU test catches a training path that reaches a kernel."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward; "
+            "training attention takes the chunked models/flash.py "
+            "(self_attention(..., train=True))")
+
+
 def ticket_counters(dev, stream, n: int):
     """Zeroed int32 tickets, at least ``n``, for the kernels whose blocks
     elect the last of a group by an atomic ticket (K3, K4 fp32): one buffer

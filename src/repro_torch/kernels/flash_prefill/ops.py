@@ -7,7 +7,8 @@ between the two. The kernel masks its own ragged edges, so nothing is
 padded. ``flash_prefill_op.launches`` counts kernel launches,
 ``flash_prefill_op.suffix_launches`` those of them with ``q_offset > 0`` and
 ``flash_prefill_op.noncausal_launches`` those with ``causal=False`` (the
-enc-dec encoder's bidirectional attention).
+enc-dec encoder's bidirectional attention). The kernel has no backward, so
+the op refuses inputs that require grad, on every device.
 
 The fp32 kernel takes a launch plan from ``launch_plan``, a pure function of
 the shapes and the card's SM count: how many warps (so how many (row, head)
@@ -92,8 +93,12 @@ def flash_prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset = 0`` is ordinary causal prefill; ``q_offset > 0`` is SUFFIX
     prefill: the first ``q_offset`` keys are a resident prefix and the
-    result is rows ``q_offset..T`` of the full-sequence attention.
+    result is rows ``q_offset..T`` of the full-sequence attention. Raises
+    where autograd would record the call (the kernel has no backward).
     """
+    from repro_torch.kernels import refuse_autograd
+
+    refuse_autograd("flash_prefill_op", q, k, v)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     assert t == s + q_offset, "keys must cover prefix (q_offset) + queries"

@@ -6,6 +6,8 @@ a layer index. On CPU tensors it runs the plain version
 on GPU tensors it launches the CUDA kernel (``csrc/paged_attention.cu``),
 which reads the layer through the pool's strides — there is no fallback
 between the two. ``paged_decode_attention.launches`` counts kernel launches.
+The kernel has no backward, so the op refuses inputs that require grad, on
+every device.
 
 The kernel splits each row's pages into runs of ``PAGES_PER_SPLIT`` pages
 counted from page 0, one block per (row, kv-head, split), sized from the
@@ -36,8 +38,12 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
     lengths (B,) int32.
 
     Returns ``out (B,H,hd)``; with ``return_stats`` also the fp32
-    online-softmax max ``m`` and normalizer ``l`` per (B, KV, G).
+    online-softmax max ``m`` and normalizer ``l`` per (B, KV, G). Raises
+    where autograd would record the call (the kernel has no backward).
     """
+    from repro_torch.kernels import refuse_autograd
+
+    refuse_autograd("paged_decode_attention", q, pool)
     b, h, hd = q.shape
     nb, L, two, payload = pool.shape
     if two != 2 or payload % (block_size * hd):

@@ -115,19 +115,20 @@ def attend(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> Tensor:
 # Layer-level entry points
 # ---------------------------------------------------------------------------
 def self_attention_heads(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
-                         positions: Tensor, window: int = 0
+                         positions: Tensor, window: int = 0, *, train: bool = False
                          ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """:func:`self_attention` minus the output projection.
 
     Above ``cfg.flash_threshold`` tokens the reference leaves plain
-    attention for flash attention; here that branch is the K4 kernel
-    (``kernels/flash_prefill``), and windowed attention, which K4 does not
-    take, stays on ``models/flash.py``.
+    attention for flash attention. Serving takes the K4 kernel
+    (``kernels/flash_prefill``) there; windowed attention, which K4 does
+    not take, and training (``train=True``: K4 has no backward) take the
+    chunked ``models/flash.py``, as the reference does.
     """
     q, k, v = qkv_project(p, x, cfg, positions)
     s = x.shape[1]
     if window > 0 or s > cfg.flash_threshold:
-        out = _flash(q, k, v, cfg, window, 0)
+        out = _flash(q, k, v, cfg, window, 0, train)
     else:
         mask = causal_mask(s, s, 0, window, x.device)[None, None, None]
         out = attend(q, k, v, mask)
@@ -135,23 +136,24 @@ def self_attention_heads(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
 
 
 def _flash(q: Tensor, k: Tensor, v: Tensor, cfg: ModelConfig, window: int,
-           offset: int) -> Tensor:
-    """The flash branch of prefill: K4 for causal attention, the chunked
-    ``models/flash.py`` for windowed attention."""
-    if window == 0:
+           offset: int, train: bool = False) -> Tensor:
+    """The flash branch of prefill: K4 for causal serving attention, the
+    chunked ``models/flash.py`` for windowed attention and for training."""
+    if window == 0 and not train:
         from repro_torch.kernels.flash_prefill import flash_prefill_op
         return flash_prefill_op(q, k, v, causal=True, q_offset=offset)
     from repro_torch.models.flash import flash_attention
     return flash_attention(q, k, v, causal=True, window=window,
                            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-                           q_offset=offset)
+                           q_offset=offset, wedge=cfg.attn_wedge)
 
 
 def self_attention(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
-                   positions: Tensor, window: int = 0
+                   positions: Tensor, window: int = 0, *, train: bool = False
                    ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
-    """Prefill: full-sequence causal self-attention; returns (out, (k, v))."""
-    out, (k, v) = self_attention_heads(p, x, cfg, positions, window)
+    """Full-sequence causal self-attention (prefill, or training with
+    ``train=True``); returns (out, (k, v))."""
+    out, (k, v) = self_attention_heads(p, x, cfg, positions, window, train=train)
     return out_project(p, out), (k, v)
 
 

@@ -63,3 +63,18 @@ def from_reference(params_np: Dict[str, Any], cfg: ModelConfig,
         return t
 
     return conv(params_np)
+
+
+def train_state_from_reference(state_np: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """Bridge a numpy copy of the reference's train state (``params``,
+    ``master``, ``m``, ``v``, ``step``, optional ``ef``; see
+    ``training/optimizer.init_state``) leaf for leaf, bit-exact, each in
+    its own dtype (after a step every ``params`` leaf is ``cfg.dtype``)."""
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return to_torch(tree, dev)
+
+    return conv(state_np)

@@ -3,12 +3,15 @@
 Port of ``repro/models/common.py``. Params are plain dicts of tensors with
 the reference's layouts: layer parameters stacked on a leading ``layers``
 axis; the forward passes loop over that axis in Python where the reference
-uses ``jax.lax.scan``.
+uses ``jax.lax.scan``. The training half: :func:`softmax_cross_entropy`,
+:func:`maybe_remat` (``torch.utils.checkpoint`` per layer), and the param
+tree helpers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,11 +64,12 @@ class ModelConfig:
     # attention impl knobs
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 1024
+    attn_wedge: bool = False         # exact-causal unrolled flash (training; models/flash.py)
     flash_threshold: int = 1024      # prefill attention takes K4 above this length
     moe_sparse_dispatch: bool = False
     moe_dispatch: str = "dense"
     moe_capacity_factor: float = 1.25
-    remat: str = "none"
+    remat: str = "none"              # none | full | dots — per-layer checkpointing (training)
     tp_reduce_bf16: bool = False
 
     # -- derived -------------------------------------------------------------
@@ -143,8 +147,20 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Initializers (explicit torch.Generator; no claim to reproduce jax.random)
 # ---------------------------------------------------------------------------
-def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
+def make_generator(dev: torch.device, seed: int) -> Optional[torch.Generator]:
+    """A generator on ``dev`` seeded with ``seed``; None on the meta device,
+    where :func:`dense_init` makes shapes only (``abstract_train_state``)."""
+    if dev.type == "meta":
+        return None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def dense_init(gen: Optional[torch.Generator], shape: Tuple[int, ...], dtype,
                scale: Optional[float] = None) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
     out = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -190,3 +206,104 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> tor
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, table.t()).float()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL. logits (..., vocab) fp32; labels int (...); the
+    optional mask weights each token and divides by ``max(mask.sum(), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+# ``remat="dots"`` keeps the outputs of the weight GEMMs — ``torch.matmul``
+# of activations (B, S, D) by a weight (D, F) dispatches to aten.mm — and
+# recomputes everything else, the attention's batched einsums (aten.bmm)
+# included: JAX's ``checkpoint_dots_with_no_batch_dims``.
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(body: Callable, cfg: ModelConfig) -> Callable:
+    """Wrap one layer's (or one griffin group's) function with activation
+    checkpointing per ``cfg.remat``: ``full`` saves only its inputs and
+    recomputes the whole layer in backward; ``dots`` also saves the weight
+    GEMMs' outputs. ``body`` takes the layer's own (unbound) leaves, never
+    the stacked tensors, so a recompute re-slices nothing."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(checkpoint, body, use_reentrant=False, context_fn=ctx)
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat mode {cfg.remat!r}")
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Param-tree helpers
+# ---------------------------------------------------------------------------
+def unbind_layers(stack: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's leaves from a dict of stacked ``(L, ...)`` leaves, taken
+    apart once with ``torch.unbind``: its backward is one ``stack`` a leaf,
+    where indexing ``leaf[i]`` per layer would add into a zeroed tensor of
+    the whole stack once a layer."""
+    names = list(stack)
+    return [dict(zip(names, leaves))
+            for leaves in zip(*(torch.unbind(stack[n], 0) for n in names))]
+
+
+def count_params(params: Dict[str, Any]) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def cast_params(params, dtype):
+    """Every floating leaf cast to ``dtype`` (others as they are)."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves of nested dicts in ``jax.tree.leaves``' order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """Nested dicts of ``template``'s structure holding ``leaves``, in
+    :func:`tree_leaves`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(template)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and parallel trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)

@@ -4,9 +4,10 @@
 The modality frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, S_enc, d_model). The encoder is
 bidirectional; above ``cfg.flash_threshold`` frames its attention is K4 in
-non-causal mode (``kernels/flash_prefill``), at or below it the plain
-:func:`attention.attend`, as the reference switches between its chunked
-flash and ``attend``. The decoder is a causal transformer with
+non-causal mode (``kernels/flash_prefill``) when serving and the chunked
+``models/flash.py`` when training (K4 has no backward), at or below it the
+plain :func:`attention.attend`, as the reference switches between its
+chunked flash and ``attend``. The decoder is a causal transformer with
 cross-attention into per-layer K/V projected once from the encoder output.
 
 Decode writes the new token's K/V at ``length``, so it needs a cache of
@@ -15,6 +16,7 @@ cache holds exactly the prompt), as the reference's tests do.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,7 +24,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as MLPM
-from repro_torch.models.common import ModelConfig, dense_init, embed, rms_norm
+from repro_torch.models.common import (ModelConfig, dense_init, embed, make_generator,
+                                       maybe_remat, rms_norm, softmax_cross_entropy,
+                                       unbind_layers, unembed)
 from repro_torch.models.transformer import _head
 
 Params = Dict[str, Any]
@@ -37,8 +41,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random params from a ``torch.Generator`` seeded with ``seed``, in the
     reference's layout (tests bridge the reference's own init instead)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = make_generator(dev, seed)
     d = cfg.d_model
 
     def block(L: int, with_cross: bool) -> Params:
@@ -98,23 +101,34 @@ def _layer(stack: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
-def encode(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
-    """frames (B, S_enc, D) -> encoder output (B, S_enc, D). Bidirectional."""
-    from repro_torch.kernels.flash_prefill import flash_prefill_op
+def _encoder_layer(cfg: ModelConfig, positions: Tensor, train: bool, x: Tensor,
+                   lp: Params) -> Tensor:
+    hn = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    q, k, v = A.qkv_project(lp, hn, cfg, positions)
+    if x.shape[1] <= cfg.flash_threshold:
+        attn = A.attend(q, k, v, None)
+    elif train:
+        from repro_torch.models.flash import flash_attention
+        attn = flash_attention(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk,
+                               kv_chunk=cfg.attn_kv_chunk)
+    else:
+        from repro_torch.kernels.flash_prefill import flash_prefill_op
+        attn = flash_prefill_op(q, k, v, causal=False)
+    x = x + A.out_project(lp, attn)
+    hn = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    return x + MLPM.gated_mlp({k2: lp[k2] for k2 in _MLP}, hn, cfg.activation)
 
+
+def encode(params: Params, cfg: ModelConfig, frames: Tensor, train: bool = False) -> Tensor:
+    """frames (B, S_enc, D) -> encoder output (B, S_enc, D). Bidirectional;
+    ``train`` takes the differentiable attention and ``cfg.remat``."""
     x = rms_norm(frames.to(cfg.dtype), params["enc_in_norm"], cfg.norm_eps)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.num_encoder_layers):
-        lp = _layer(params["encoder"], i)
-        hn = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-        q, k, v = A.qkv_project(lp, hn, cfg, positions)
-        if x.shape[1] > cfg.flash_threshold:
-            attn = flash_prefill_op(q, k, v, causal=False)
-        else:
-            attn = A.attend(q, k, v, None)
-        x = x + A.out_project(lp, attn)
-        hn = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-        x = x + MLPM.gated_mlp({k2: lp[k2] for k2 in _MLP}, hn, cfg.activation)
+    layer = functools.partial(_encoder_layer, cfg, positions, train)
+    if train:
+        layer = maybe_remat(layer, cfg)
+    for lp in unbind_layers(params["encoder"]):
+        x = layer(x, lp)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -143,10 +157,38 @@ def _cross_and_mlp(cfg: ModelConfig, lp: Params, h: Tensor, xk: Tensor, xv: Tens
 
 
 def _decoder_layer(cfg: ModelConfig, lp: Params, h: Tensor, positions: Tensor,
-                   xk: Tensor, xv: Tensor) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+                   xk: Tensor, xv: Tensor, train: bool = False
+                   ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
-    attn, (k, v) = A.self_attention(lp, hn, cfg, positions)
+    attn, (k, v) = A.self_attention(lp, hn, cfg, positions, train=train)
     return _cross_and_mlp(cfg, lp, h + attn, xk, xv), (k, v)
+
+
+def _decoder_layer_train(cfg: ModelConfig, positions: Tensor, h: Tensor, lp: Params,
+                         xk: Tensor, xv: Tensor) -> Tensor:
+    return _decoder_layer(cfg, lp, h, positions, xk, xv, train=True)[0]
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]
+                  ) -> Tuple[Tensor, Tensor]:
+    """batch: frames (B, S_enc, D) + tokens (B, S_dec) -> (decoder logits
+    (B, S_dec, V) fp32, aux_loss = 0)."""
+    memory = encode(params, cfg, batch["frames"], train=True)
+    x = embed(batch["tokens"], params["embed"], cfg.embed_scale)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = maybe_remat(functools.partial(_decoder_layer_train, cfg, positions), cfg)
+    for lp in unbind_layers(params["decoder"]):
+        xk, xv = A.encode_memory({"wk": lp["x_wk"], "wv": lp["x_wv"]}, memory)
+        x = body(x, lp, xk, xv)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"]), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    logits, _ = forward_train(params, cfg, batch)
+    mask = batch.get("loss_mask")
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                                 None if mask is None else mask[:, 1:])
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]

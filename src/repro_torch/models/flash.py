@@ -1,19 +1,19 @@
 """Chunked (flash-style) attention in plain PyTorch. Port of
 ``repro/models/flash.py``.
 
-Windowed prefill attention goes through here so (S, T) score matrices
-never materialize (causal prefill above ``cfg.flash_threshold`` tokens runs
-the K4 kernel, ``kernels/flash_prefill``, instead): queries are
-processed in chunks with an fp32 online-softmax accumulator over key/value
-chunks. The reference's ``jax.lax.scan`` loops are Python loops here.
+Windowed prefill attention, and all training attention above
+``cfg.flash_threshold`` tokens, go through here so (S, T) score matrices
+never materialize (causal serving prefill above the threshold runs the K4
+kernel, ``kernels/flash_prefill``, instead; K4 has no backward): queries
+are processed in chunks with an fp32 online-softmax accumulator over
+key/value chunks. The reference's ``jax.lax.scan`` loops are Python loops
+here, and autograd differentiates them.
 
 * ``window > 0``  — local attention over a static key span per query chunk;
-* ``window = 0``  — every kv chunk, causal-masked (what the windowed path
-  falls back to when the span covers every key).
-
-The reference's ``wedge`` variant (each query chunk contracting only its
-causal prefix) is not ported: it only ever ran on the unwindowed branch,
-which K4 replaces.
+* ``wedge=True``  — each query chunk contracts only its causal prefix
+  (exact causal FLOPs; the training path's ``cfg.attn_wedge``);
+* otherwise       — every kv chunk, causal-masked (also what the windowed
+  path falls back to when the span covers every key).
 """
 from __future__ import annotations
 
@@ -71,7 +71,8 @@ def _init_state(b, kvh, g, qc, hd, device):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0, q_chunk: int = 512, kv_chunk: int = 1024,
-                    q_offset: int = 0, _mask_window: int = 0) -> Tensor:
+                    q_offset: int = 0, wedge: bool = False,
+                    _mask_window: int = 0) -> Tensor:
     """q (B,S,H,hd); k,v (B,T,KV,hd) -> (B,S,H,hd).
 
     ``q_offset``: global position of q[0] relative to k[0] (suffix prefill).
@@ -82,6 +83,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     g = h // kvh
     if window > 0:
         return _local_flash(q, k, v, window=window, q_chunk=q_chunk, q_offset=q_offset)
+    if wedge:
+        return _wedge_flash(q, k, v, causal=causal, q_chunk=q_chunk, q_offset=q_offset)
 
     q_chunk = min(q_chunk, s)
     pad_q = (-s) % q_chunk
@@ -115,6 +118,29 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
             m, l, acc = _chunk_attend(qc, kc, vc, mask[None, None, None], m, l, acc)
         outs.append(_finalize(l, acc, q.dtype))
     return torch.cat(outs, dim=1)[:, :s]
+
+
+def _wedge_flash(q, k, v, *, causal: bool, q_chunk: int, q_offset: int):
+    """Causal wedge: each query chunk attends to its causal prefix of keys
+    only, in one online-softmax step."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    kvh = k.shape[2]
+    g = h // kvh
+    q_chunk = min(q_chunk, s)
+    outs = []
+    for qi in range(0, s, q_chunk):
+        qc_len = min(q_chunk, s - qi)
+        qc = _split_heads(q[:, qi:qi + qc_len], kvh)
+        hi = min(t, q_offset + qi + qc_len) if causal else t
+        qpos = q_offset + qi + torch.arange(qc_len, device=q.device)
+        mask = torch.ones((qc_len, hi), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (torch.arange(hi, device=q.device)[None, :] <= qpos[:, None])
+        m, l, acc = _init_state(b, kvh, g, qc_len, hd, q.device)
+        m, l, acc = _chunk_attend(qc, k[:, :hi], v[:, :hi], mask[None, None, None], m, l, acc)
+        outs.append(_finalize(l, acc, q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def _local_flash(q, k, v, *, window: int, q_chunk: int, q_offset: int):

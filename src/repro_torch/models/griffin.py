@@ -22,6 +22,7 @@ whole group unrolled as ``tail_rec{t}`` / ``tail_mlp{t}``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -30,7 +31,9 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as MLPM
-from repro_torch.models.common import ModelConfig, dense_init, embed, rms_norm
+from repro_torch.models.common import (ModelConfig, dense_init, embed, make_generator,
+                                       maybe_remat, rms_norm, softmax_cross_entropy,
+                                       unbind_layers, unembed)
 from repro_torch.models.mamba2 import softplus
 from repro_torch.models.transformer import _head
 
@@ -79,7 +82,7 @@ def _attn_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
 def _init_block(gen: torch.Generator, shapes: Dict[str, Tuple[int, ...]],
                 cfg: ModelConfig, stack: int = 0) -> Params:
     out = {}
-    dev = gen.device
+    dev = torch.device("meta") if gen is None else gen.device
     for name, shape in shapes.items():
         full = (stack, *shape) if stack else shape
         if name == "lam":
@@ -104,8 +107,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     reference's layout (tests bridge the reference's own init instead)."""
     assert cfg.layer_pattern == ("rec", "rec", "attn"), "griffin pattern fixed"
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = make_generator(dev, seed)
     G, tail = num_groups_and_tail(cfg)
     group = {
         "rec0": _init_block(gen, _rec_shapes(cfg), cfg, stack=G),
@@ -206,10 +208,11 @@ def _mlp_block(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
     return x + MLPM.gated_mlp(p, xn, "gelu")
 
 
-def _attn_block_train(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor
-                      ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+def _attn_block_train(cfg: ModelConfig, p: Params, x: Tensor, positions: Tensor,
+                      train: bool = False) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    out, (k, v) = A.self_attention(p, xn, cfg, positions, window=cfg.attn_window)
+    out, (k, v) = A.self_attention(p, xn, cfg, positions, window=cfg.attn_window,
+                                   train=train)
     return x + out, (k, v)
 
 
@@ -235,6 +238,38 @@ def _scan_groups(cfg: ModelConfig, params: Params, x: Tensor, positions: Tensor)
         x = _mlp_block(cfg, gp["mlp2"], x)
         outs.append((conv0, hf0, conv1, hf1, k, v))
     return x, tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _group_train(cfg: ModelConfig, positions: Tensor, x: Tensor, gp: Params) -> Tensor:
+    """One whole (rec, mlp, rec, mlp, attn, mlp) group, training flavour."""
+    x = _mlp_block(cfg, gp["mlp0"], _rec_block(cfg, gp["rec0"], x)[0])
+    x = _mlp_block(cfg, gp["mlp1"], _rec_block(cfg, gp["rec1"], x)[0])
+    x, _ = _attn_block_train(cfg, gp["attn"], x, positions, train=True)
+    return _mlp_block(cfg, gp["mlp2"], x)
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: Tensor,
+                  frontend_embeds=None) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux_loss = 0): the whole
+    groups, each one ``maybe_remat`` call, then the "rec" tail layers."""
+    x = embed(tokens, params["embed"], cfg.embed_scale)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = maybe_remat(functools.partial(_group_train, cfg, positions), cfg)
+    blocks = {blk: unbind_layers(leaves) for blk, leaves in params["groups"].items()}
+    for g in range(num_groups_and_tail(cfg)[0]):
+        x = body(x, {blk: per_group[g] for blk, per_group in blocks.items()})
+    for t in range(num_groups_and_tail(cfg)[1]):
+        x = _rec_block(cfg, params[f"tail_rec{t}"], x)[0]
+        x = _mlp_block(cfg, params[f"tail_mlp{t}"], x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"]), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    logits, _ = forward_train(params, cfg, batch["tokens"])
+    mask = batch.get("loss_mask")
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                                 None if mask is None else mask[:, 1:])
 
 
 def _ring_from_prefill(k: Tensor, window: int) -> Tensor:

@@ -21,13 +21,16 @@ transfer path moves P -> D (``core/transfer.StateBackend``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.common import ModelConfig, dense_init, embed, rms_norm
+from repro_torch.models.common import (ModelConfig, dense_init, embed, make_generator,
+                                       maybe_remat, rms_norm, softmax_cross_entropy,
+                                       unbind_layers, unembed)
 from repro_torch.models.transformer import _head, layer_params
 
 Params = Dict[str, Any]
@@ -41,8 +44,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random params from a ``torch.Generator`` seeded with ``seed``, in the
     reference's layout (tests bridge the reference's own init instead)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = make_generator(dev, seed)
     L, d = cfg.num_layers, cfg.d_model
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     cw = cfg.ssm_conv
@@ -199,6 +201,28 @@ def _layer(cfg: ModelConfig, lp: Params, u: Tensor, conv_state=None,
 # ---------------------------------------------------------------------------
 # Entry points (the protocol of models/transformer.py)
 # ---------------------------------------------------------------------------
+def _layer_train(cfg: ModelConfig, u: Tensor, lp: Params) -> Tensor:
+    return _layer(cfg, lp, u)[0]
+
+
+def forward_train(params: Params, cfg: ModelConfig, tokens: Tensor,
+                  frontend_embeds=None) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux_loss = 0)."""
+    x = embed(tokens, params["embed"], cfg.embed_scale)
+    body = maybe_remat(functools.partial(_layer_train, cfg), cfg)
+    for lp in unbind_layers(params["layers"]):
+        x = body(x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params["embed"]), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    logits, _ = forward_train(params, cfg, batch["tokens"])
+    mask = batch.get("loss_mask")
+    return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                                 None if mask is None else mask[:, 1:])
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: Tensor,
             frontend_embeds=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Last-position logits (B, V) fp32 and the request state."""

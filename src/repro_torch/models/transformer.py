@@ -11,9 +11,16 @@ blocks::
 FFN is the gated MLP, or for the MoE family one of ``models/moe.py``'s
 dispatches (chosen as the reference's ``_ffn`` chooses). A VLM's
 ``frontend_embeds`` are spliced in front of the text embeddings.
+
+``forward_train`` / ``loss_fn`` are the training forward: the stacked
+leaves are unbound once (``common.unbind_layers``), each layer is one
+``maybe_remat`` call, attention above ``flash_threshold`` is the chunked
+``models/flash.py`` (never K4, which has no backward), and the MoE aux
+loss is summed over layers.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,7 +29,9 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as MOE
-from repro_torch.models.common import ModelConfig, dense_init, embed, rms_norm, unembed
+from repro_torch.models.common import (ModelConfig, dense_init, embed, make_generator,
+                                       maybe_remat, rms_norm, softmax_cross_entropy,
+                                       unbind_layers, unembed)
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -43,8 +52,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     init through :func:`repro_torch.models.bridge.from_reference`)."""
     _require_transformer(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = make_generator(dev, seed)
     L, d = cfg.num_layers, cfg.d_model
     layer: Dict[str, Tensor] = {
         name: dense_init(gen, (L, *shape), cfg.dtype)
@@ -103,19 +111,36 @@ def layer_params(params: Params, i: int) -> Dict[str, Tensor]:
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-def _ffn(lp: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """The block's FFN output; the MoE dispatches' aux loss (a training
-    term) is dropped, as the reference's serving paths drop it."""
+def _ffn_aux(lp: Params, x: Tensor, cfg: ModelConfig
+             ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The block's FFN output and the MoE dispatch's aux loss (None for a
+    dense FFN)."""
     if cfg.family == "moe":
         moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
         if cfg.top_k == 1 and cfg.moe_sparse_dispatch:
-            return MOE.moe_ffn_topk_sparse(moe_p, x, cfg)[0]
+            return MOE.moe_ffn_topk_sparse(moe_p, x, cfg)
         if cfg.moe_dispatch == "gshard":
-            return MOE.moe_ffn_gshard(moe_p, x, cfg, cfg.moe_capacity_factor)[0]
+            return MOE.moe_ffn_gshard(moe_p, x, cfg, cfg.moe_capacity_factor)
         if cfg.moe_dispatch == "gshard_einsum":
-            return MOE.moe_ffn_gshard_einsum(moe_p, x, cfg, cfg.moe_capacity_factor)[0]
-        return MOE.moe_ffn(moe_p, x, cfg)[0]
-    return M.gated_mlp(lp, x, cfg.activation)
+            return MOE.moe_ffn_gshard_einsum(moe_p, x, cfg, cfg.moe_capacity_factor)
+        return MOE.moe_ffn(moe_p, x, cfg)
+    return M.gated_mlp(lp, x, cfg.activation), None
+
+
+def _ffn(lp: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The block's FFN output; the aux loss (a training term) is dropped, as
+    the reference's serving paths drop it."""
+    return _ffn_aux(lp, x, cfg)[0]
+
+
+def _layer_train(cfg: ModelConfig, positions: Tensor, x: Tensor, lp: Params
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
+    """One training layer on x (B, S, D): (out, aux or None)."""
+    h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    attn_out, _ = A.self_attention(lp, h, cfg, positions, cfg.attn_window, train=True)
+    x = x + attn_out
+    ffn_out, aux = _ffn_aux(lp, rms_norm(x, lp["norm_mlp"], cfg.norm_eps), cfg)
+    return x + ffn_out, aux
 
 
 def _head(params: Params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -134,6 +159,34 @@ def _input_embeds(params: Params, cfg: ModelConfig, tokens: Tensor,
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+def forward_train(params: Params, cfg: ModelConfig, tokens: Tensor,
+                  frontend_embeds: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """tokens (B, S_text) -> (logits (B, S_total, V) fp32, aux_loss)."""
+    x = _input_embeds(params, cfg, tokens, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = maybe_remat(functools.partial(_layer_train, cfg, positions), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in unbind_layers(params["layers"]):
+        x, aux_i = body(x, lp)
+        if aux_i is not None:
+            aux = aux + aux_i
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params.get("unembed", params["embed"])), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor]) -> Tensor:
+    """Next-token NLL over ``batch`` = {tokens, labels, optional loss_mask,
+    optional frontend_embeds} plus 0.01 x the MoE aux loss."""
+    logits, aux = forward_train(params, cfg, batch["tokens"], batch.get("frontend_embeds"))
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if logits.shape[1] != labels.shape[1]:       # frontend positions carry no labels
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    loss = softmax_cross_entropy(logits[:, :-1], labels[:, 1:],
+                                 None if mask is None else mask[:, 1:])
+    return loss + 0.01 * aux
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: Tensor,
             frontend_embeds: Optional[Tensor] = None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -188,6 +241,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
             "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def cache_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    return {
+        "k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "length": ("batch",),
+    }
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: Tensor,

@@ -1,27 +1,33 @@
-"""Checkpoint/restore for the serving cluster. Port of the serving half of
-``repro/serving/checkpoint.py``.
+"""Checkpoint/restore for the serving cluster and the training state. Port
+of ``repro/serving/checkpoint.py``.
 
-Captures every node's pool, block tables, queue contents and in-flight
-request lifecycle so a controller restart resumes mid-stream.
+Serving: captures every node's pool, block tables, queue contents and
+in-flight request lifecycle so a controller restart resumes mid-stream.
+Training: params / optimizer state / step in one ``step_XXXXXXXX.npz``
+written atomically (crash-safe), plus ``latest_checkpoint`` for
+resume-from-latest. Keys are the leaves' paths joined by "/"
+(``params/layers/wq``, ``step``); a bf16 leaf is saved as fp32 under
+``key + "@bf16"`` and comes back bit for bit.
 
 Format: numpy ``.npz`` for arrays + msgpack for structure, the reference's
 own files: a checkpoint either package writes, the other loads. Pools and
 spilled K/V are saved as float32 (exact for bf16) and restored onto the
 pool's own device and dtype, in place — the port's pools keep their
 storage. The host-DRAM tier is not saved (the reference saves none): a
-restore starts it empty. The train-state half waits for ROADMAP item 12.
+restore starts it empty.
 """
 from __future__ import annotations
 
 import os
 import pathlib
 import tempfile
-from typing import Dict
+from typing import Dict, Optional
 
 import msgpack
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.serving.request import Request, RequestState, SamplingParams
 
 
@@ -226,6 +232,68 @@ def _rebuild_segment_allocator(bm) -> None:
         fresh._num_free = sum(l for _, l in free_runs)
         fresh._allocated = set(allocated)
     bm.allocator = fresh
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoint (atomic, resume-from-latest)
+# ---------------------------------------------------------------------------
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts of tensors -> {"a/b/c": array}, bf16 leaves as fp32
+    under ``key + "@bf16"`` (numpy has no bfloat16)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = prefix + str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "/"))
+        elif v.dtype == torch.bfloat16:
+            out[key + "@bf16"] = _f32(v)
+        else:
+            out[key] = v.detach().cpu().numpy()
+    return out
+
+
+def _unflatten_into(template, flat, prefix: str = "", device=None):
+    """Tensors of ``template``'s structure, each leaf on the template leaf's
+    device and in its dtype; a meta leaf goes to ``device``. ``flat`` maps
+    keys to arrays (an open ``np.load`` file reads one leaf at a time)."""
+    out = {}
+    for k, t in template.items():
+        key = prefix + str(k)
+        if isinstance(t, dict):
+            out[k] = _unflatten_into(t, flat, key + "/", device)
+            continue
+        arr = flat[key + "@bf16"] if key + "@bf16" in flat else flat[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
+                             f"the template {tuple(t.shape)}")
+        dev = resolve_device(device) if t.device.type == "meta" else t.device
+        out[k] = torch.from_numpy(arr).to(device=dev, dtype=t.dtype)
+    return out
+
+
+def save_train_state(state, step: int, ckpt_dir: str) -> str:
+    d = pathlib.Path(ckpt_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    final = d / f"step_{step:08d}.npz"
+    _atomic_savez(final, _flatten(state))
+    return str(final)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    d = pathlib.Path(ckpt_dir)
+    if not d.exists():
+        return None
+    ckpts = sorted(d.glob("step_*.npz"))
+    return str(ckpts[-1]) if ckpts else None
+
+
+def load_train_state(template, path: str, device=None):
+    """The train state saved at ``path``, in ``template``'s structure,
+    dtypes and devices. ``template`` may hold meta tensors
+    (``distributed/steps.abstract_train_state``): those leaves go to
+    ``device`` (default CUDA, as every entry point of the port)."""
+    with np.load(path) as npz:
+        return _unflatten_into(template, npz, device=device)
 
 
 # ---------------------------------------------------------------------------

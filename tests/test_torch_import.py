@@ -6,6 +6,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import pytest
 
@@ -22,7 +23,9 @@ def test_import_every_module_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "need = {'repro_torch.models.moe', 'repro_torch.distributed.sharding',\n"
         "        'repro_torch.distributed.tp', 'repro_torch.models.mamba2',\n"
-        "        'repro_torch.models.griffin', 'repro_torch.models.encdec'}\n"
+        "        'repro_torch.models.griffin', 'repro_torch.models.encdec',\n"
+        "        'repro_torch.training.optimizer', 'repro_torch.distributed.steps',\n"
+        "        'repro_torch.launch.train'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -55,8 +58,15 @@ def _entry_points():
     from repro_torch.serving.cluster import PDCluster
     from repro_torch.serving.engine import NodeEngine
 
+    from repro_torch.distributed.steps import abstract_train_state
+    from repro_torch.launch import train as LT
+    from repro_torch.serving.checkpoint import load_train_state, save_train_state
+    from repro_torch.training.optimizer import init_state
+
     cfg = get_smoke_config("qwen3-1.7b")
     params = T.init_params(cfg, 0, device="cpu")
+    ckpt = save_train_state(init_state(params), 0, tempfile.mkdtemp())
+    train_argv = ["--steps", "1", "--batch", "1", "--seq", "8"]
     return {
         "init_params": lambda dev: T.init_params(cfg, 0, device=dev),
         "model.init": lambda dev: get_model(cfg).init(0, dev),
@@ -65,11 +75,16 @@ def _entry_points():
         "NodeEngine": lambda dev: NodeEngine(0, cfg, params, num_blocks=8, device=dev),
         "PDCluster": lambda dev: PDCluster(cfg, params, num_blocks=8, device=dev),
         "FlowKVClient": lambda dev: FlowKVClient(cfg, params, num_blocks=8, device=dev),
+        "launch.train": lambda dev: LT.run(LT.build_parser().parse_args(
+            train_argv + ([] if dev is None else ["--device", dev])), log=lambda line: None),
+        "load_train_state": lambda dev: load_train_state(
+            abstract_train_state(get_model(cfg)), ckpt, device=dev),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "model.init", "from_reference",
-                                  "NodeEngine", "PDCluster", "FlowKVClient"])
+                                  "NodeEngine", "PDCluster", "FlowKVClient",
+                                  "launch.train", "load_train_state"])
 def test_entry_points_refuse_missing_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry points run there")
@@ -127,3 +142,25 @@ def test_out_of_scope_features_name_their_roadmap_item():
                and tiered.engines[nid].tier is tm for nid, tm in tiered.tiers.items())
     state = PDCluster(cfg, params, num_blocks=8, device="cpu").checkpoint()
     assert set(state) == {"clock", "nodes", "finished", "cancelled", "rejected"}
+    # item 12a is ported: the training path (loss, optimizer, train step,
+    # train-state checkpoint, launcher) for every family
+    from repro_torch.distributed import steps as ST
+    from repro_torch.serving.checkpoint import load_train_state, save_train_state
+    from repro_torch.training import optimizer as OPT
+
+    for arch in ("qwen3-1.7b", "granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-2b",
+                 "seamless-m4t-large-v2"):
+        model = get_model(get_smoke_config(arch))
+        tr_state = OPT.init_state(model.init(0, "cpu"))
+        step, spec = ST.make_train_step(model)
+        assert set(spec) == {"params", "master", "m", "v", "step"}
+        toks = torch.zeros((1, 8), dtype=torch.long)
+        batch = {"tokens": toks, "labels": toks}
+        if model.cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, 8, model.cfg.d_model))
+        tr_state, metrics = step(tr_state, batch)
+        assert bool(torch.isfinite(metrics["loss"])) and int(tr_state["step"]) == 1
+    with tempfile.TemporaryDirectory() as d:
+        back = load_train_state(ST.abstract_train_state(model),
+                                save_train_state(tr_state, 1, d), device="cpu")
+        assert int(back["step"]) == 1
