@@ -31,7 +31,12 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  times. At e2e_moe_tp's shapes (granite-moe-1b-a400m: L=24,
                  KV=8, hd=64): K1 over the fine (-1, hd) rows of a
                  1500-token bf16 prompt moved TP 2 -> 4 (four shard pairs,
-                 bit-exact, beside index_copy_ on the same rows), K3 at the
+                 bit-exact; the small-row design beside index_copy_ on the
+                 same rows and beside one block a row, the design it
+                 replaced, with ops.ROWS_BELOW printed), K1 over the
+                 decode appends' short tables (48-192 rows of 256 B-1 KiB,
+                 both designs bit-exact and timed device-only beside the
+                 one ops.rows_from picks), K3 at the
                  heads one shard sees at TP 1 / 2 / 4 (B=4) in both dtypes,
                  K4 cold at granite's heads (S = T = 1500) in both dtypes and
                  in bf16 at llama4-scout's (40/8, hd 128, S = 1500) and
@@ -79,8 +84,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  transfer's K1 time, device verify wall and host blake2b
                  wall, and K1's demote/promote times over pinned memory
                  against the host link's bound (nvidia-smi) and the PyTorch
-                 calls that make the same move; its host-route launch count
-                 goes into the ``kernels`` line as ``kv_transfer_host``.
+                 calls that make the same move, with the design K1 takes
+                 each way; its host-route launch count goes into the
+                 ``kernels`` line as ``kv_transfer_host``.
 8. ``e2e_moe_tp`` — granite-moe-1b-a400m (32 experts, top-8, dense
                  dispatch) at full width and depth, 1 prefill + 1 decode
                  node of 192 blocks, prompts of 200-1500 tokens, 8 new
@@ -103,8 +109,11 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  transfer walls; the decode step's wall and device time
                  with K3's and the MoE FFNs' shares against the expert
                  weights' read floor; one cold 1500-token prefill's device
-                 time split. The 2 -> 4 run's fine-row K1 launch count
-                 goes into the ``kernels`` line as ``kv_transfer_fine``.
+                 time split; the bf16 2 -> 4 run again four times in turns
+                 (K1 forced to one block a row, as shipped, as shipped,
+                 forced) for its transfer walls. The fp32 2 -> 4 run's
+                 fine-row K1 launch count goes into the ``kernels`` line as
+                 ``kv_transfer_fine``.
 9. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
                  own prefill (``obs/calibrate.check`` on the card):
                  full-width, full-depth qwen3-1.7b at its bfloat16, 8 prompt
@@ -1358,7 +1367,7 @@ def _host_route_timing(torch, cfg, peaks) -> dict:
     against the plain version (bit-exact) and their bound over the host
     link, beside the PyTorch calls that make the same move."""
     from repro_torch.core.transfer import TransferPlanner
-    from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref
+    from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref, ops
     from repro_torch.serving.kv_cache import spec_for_model
 
     spec = spec_for_model(cfg, 64)
@@ -1396,6 +1405,11 @@ def _host_route_timing(torch, cfg, peaks) -> dict:
     u_err = float((pool2 - want_d).abs().max())
     check(torch.equal(pool2.view(torch.int32), want_d.view(torch.int32)),
           f"K1 promote from pinned memory not bit-exact (max |delta| {u_err})")
+    row_bytes = spec.payload * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out["design"] = {name: dataclasses.asdict(ops.k1_design(row_bytes, 0, *sides, n_, sms))
+                     for name, sides, n_ in (("demote", (False, True), int(dsp.numel())),
+                                             ("promote", (True, False), int(usp.numel())))}
     link = _pcie_link(torch, lambda: kv_transfer(host, pool2, usp, udp))
     b_ms = max(nbytes / link["link_bps"], 2 * nbytes / peaks["hbm"]) * 1e3
     hview = host[20:20 + n]                  # the host blocks are one contiguous run
@@ -1659,6 +1673,14 @@ MOE_STEP_TOL = 1e-3                    # a decode step: paged vs dense, TP 2 / 4
 MOE_PREFILL_TOL = 2e-2                 # the sharded prefill of 1100 tokens vs unsharded
 
 
+def _block_a_row(row_bytes, align, src_on_host, dst_on_host, n, sms=132):
+    """``ops.k1_design``'s signature over ``ops.block_a_row``: put in its
+    place to serve with K1's design before the small-row one."""
+    from repro_torch.kernels.kv_gather import ops
+
+    return ops.block_a_row(row_bytes, align, n)
+
+
 def _tp_kernel_cases(torch, peaks, gen, flush) -> dict:
     """The kernels at the shapes of e2e_moe_tp and of the MoE/VLM configs:
     K1 over the fine (-1, hd) rows of a 1500-token granite-moe bf16 prompt
@@ -1672,7 +1694,7 @@ def _tp_kernel_cases(torch, peaks, gen, flush) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.layout import KVCacheSpec
     from repro_torch.core.transfer import ShardedTransferEngine, ShardSpec, shard_pairs
-    from repro_torch.kernels.kv_gather import kv_transfer_fine, kv_transfer_ref
+    from repro_torch.kernels.kv_gather import kv_transfer_fine, kv_transfer_ref, ops
 
     cfg = get_config(MOE_ARCH)
     L, KV, hd, bs, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.block_size, cfg.num_heads
@@ -1731,24 +1753,76 @@ def _tp_kernel_cases(torch, peaks, gen, flush) -> dict:
         for s, d, sp, dp in lib_idx:
             dflat[d].index_copy_(0, dp, sflat[s].index_select(0, sp))
 
+    row_bytes = hd * 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    designs = [ops.k1_design(row_bytes, src[s].data_ptr() | dk[d].data_ptr(), False, False,
+                             int(sp.numel()), sms) for s, d, sp, _ in pairs]
+    check(all(x.design == "rows" for x in designs), f"K1 fine rows took {designs}")
+
+    def block_a_row(dsts):                 # the design the small-row kernel replaced
+        for s, d, sp, dp in pairs:
+            ops.kv_transfer_design(sflat[s], dsts[d].view(-1, hd), sp, dp,
+                                   ops.block_a_row(row_bytes, 0, int(sp.numel())))
+
+    old = [p.clone() for p in dst0]
+    block_a_row(old)
+    sync(torch)
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(old, dp_)),
+          "K1 fine rows, one block a row: not bit-exact")
     t_k = time_ms(torch, lambda: kernel(dk), flush=flush)
+    t_old = time_ms(torch, lambda: block_a_row(old), flush=flush)
     t_p = time_ms(torch, lambda: plain(dp_), flush=flush)
     t_l = time_ms(torch, library, flush=flush)
-    t_d = device_only_ms(torch, lambda: kernel(dk), "kv_transfer_kernel", flush=flush)
+    t_d = device_only_ms(torch, lambda: kernel(dk), "kv_transfer_rows", flush=flush)
+    t_old_d = device_only_ms(torch, lambda: block_a_row(old), "kv_transfer_kernel", flush=flush)
     t_plan = time_ms(torch, lambda: engine.execute(plan, src, de), reps=10, flush=flush)
-    row_bytes = hd * 2
     moved = 2 * rows_n * row_bytes + 2 * rows_n * 4
     b1, b1_by = bound_ms(moved, 0, peaks, "bf16")
     emit("kernels", kernel="kv_transfer_fine", case="TP 2 -> 4, 1500 tokens granite-moe bf16",
          pairs=len(pairs), rows=rows_n, row_bytes=row_bytes, bit_exact=exact,
          untouched_kept=kept, max_abs_err=err, ms=t_k, device_only_ms=t_d, plain_ms=t_p,
          library_ms=t_l, plan_with_tables_ms=t_plan, bound_ms=b1, bound_by=b1_by,
-         bound_share=b1 / t_k, achieved_gbps=moved / t_k / 1e6, library_over_kernel=t_l / t_k)
+         bound_share=b1 / t_k, achieved_gbps=moved / t_k / 1e6, library_over_kernel=t_l / t_k,
+         design=[dataclasses.asdict(x) for x in designs], rows_below=ops.ROWS_BELOW,
+         block_a_row_ms=t_old, block_a_row_device_only_ms=t_old_d,
+         block_a_row_over_small_rows=t_old / t_k)
     rows = {"kv_transfer_fine": dict(
         shape=f"TP 2 -> 4 fine rows of a {PROMPT_LENS[-1]}-token prompt: {len(pairs)} pairs, "
               f"{rows_n} rows x {row_bytes} B bf16", max_abs_err=err, ms=t_k,
         plain_ms=t_p, library_ms=t_l, bound_ms=b1, bound_by=b1_by)}
-    del src, dst0, dk, dp_, de, sflat, dflat, lib_idx, pairs
+    del src, dst0, dk, dp_, de, sflat, dflat, lib_idx, pairs, old
+
+    # -- K1 over the decode appends' short tables in e2e_moe_tp (B <= 4 lanes x
+    # L layers x K/V rows of one shard's heads), as shipped beside the other
+    # design: below ops.rows_from(width) rows they keep one block a row
+    slots = MOE_BLOCKS * L * 2 * bs
+    appends = {}
+    for w in (KV // 4 * hd * 2, KV // 2 * hd * 2, KV * hd * 2):    # 256 / 512 / 1024 B
+        for b in (1, 2, 4):
+            rows_a = b * L * 2
+            stage = torch.randint(0, 256, (rows_a, w), generator=gen, dtype=torch.uint8,
+                                  device=DEVICE)
+            slot = torch.zeros((slots, w), dtype=torch.uint8, device=DEVICE)
+            sp = torch.arange(rows_a, dtype=torch.int32, device=DEVICE)
+            dp = torch.randperm(slots, generator=gen, device=DEVICE)[:rows_a].to(torch.int32)
+            want = slot.clone()
+            kv_transfer_ref(stage, want, sp, dp)
+            shipped = ops.k1_design(w, stage.data_ptr() | slot.data_ptr(), False, False,
+                                    rows_a, sms)
+            case = {"shipped": shipped.design, "rows_from": ops.rows_from(w)}
+            for name, d in (("block_a_row", ops.block_a_row(w, 0, rows_a)),
+                            ("rows", ops.rows_design(w, 16, rows_a, sms))):
+                out_a = slot.clone()
+                ops.kv_transfer_design(stage, out_a, sp, dp, d)
+                sync(torch)
+                check(torch.equal(out_a, want), f"K1 append {w} B x {rows_a} ({name}) not bit-exact")
+                case[f"{name}_device_only_ms"] = device_only_ms(
+                    torch, lambda: ops.kv_transfer_design(stage, out_a, sp, dp, d),
+                    "kv_transfer_rows" if name == "rows" else "kv_transfer_kernel", flush=flush)
+            appends[f"{w} B x {rows_a}"] = case
+            del stage, slot, want, out_a
+    emit("kernels", kernel="kv_transfer", case="e2e_moe_tp decode appends (short tables)",
+         rows_below=ops.ROWS_BELOW, appends=appends)
 
     # -- K3 at a shard's heads: granite at TP 1 / 2 / 4, the decode step's B=4
     for dtype in (torch.float32, bf16):
@@ -1983,6 +2057,7 @@ def phase_e2e_moe_tp(torch, env) -> dict:
     bf16 (the timing run). Returns the fp32 2 -> 4 run's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.core.costmodel import sharded_transfer_calls
+    from repro_torch.kernels.kv_gather import ops
     from repro_torch.models import transformer as T
 
     tag = "e2e_moe_tp"
@@ -2076,6 +2151,20 @@ def phase_e2e_moe_tp(torch, env) -> dict:
             step=_moe_step_timing(torch, cfg, params, prompts, tpd[1], env["peaks"]))
         del client, handles
         gc.collect()
+    # the 2 -> 4 run again in turns, with every K1 launch one block a row
+    # (the fine rows' design before the small-row kernel) and as shipped
+    walls = {"block_a_row": [], "small_rows": []}
+    for name in ("block_a_row", "small_rows", "small_rows", "block_a_row"):
+        with (_patched(ops, "k1_design", _block_a_row) if name == "block_a_row"
+              else contextlib.nullcontext()):
+            client, handles, _, _ = _moe_serve(torch, cfg, params, prompts, MOE_TP[-1], 4096)
+        check([int(h.request.output_tokens[0]) for h in handles] == first,
+              f"{tag} bf16 TP 2->4 ({name}): first tokens differ")
+        walls[name].append([h.request.transfer_end_wall - h.request.transfer_start_wall
+                            for h in handles])
+        del client, handles
+        gc.collect()
+    data["bf16_transfer_wall_s_2->4_in_turns"] = walls
     data["bf16_cold_prefill_profile"] = profile_cold_prefill(torch, cfg, params, prompts[-1])
     check(data["bf16_cold_prefill_profile"]["k4_ms"] > 0,
           f"{tag}: the cold prefill of {PROMPT_LENS[-1]} tokens launched no K4")

@@ -36,8 +36,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "kv_transfer_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _VP],
-    "kv_transfer_host_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _VP],
+    "kv_transfer_launch": [_VP, _VP, _VP, _VP, _LL, _LL, _VP, _VP],
     "kv_gather_blocks_launch": [_VP, _VP, _VP, _LL, _LL, _VP],
     "paged_decode_attention_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
@@ -106,6 +105,8 @@ def build_library(verbose: bool = False) -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:                # every launch asks: no lock once loaded
+        return _LIB
     with _LOCK:
         if _LIB is None:
             cdll = ctypes.CDLL(str(build_library()))

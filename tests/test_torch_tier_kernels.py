@@ -6,7 +6,10 @@ JAX, so it runs on a machine with the card alone:
 
 K1 moves pages between a CUDA pool and a pinned host pool in either
 direction with one launch per plan, bit-exact against ``kv_transfer_ref``;
-an unpinned host pool raises. ``verify_transfer`` on CUDA pools gives the
+an unpinned host pool raises. The promote (one block a page over the mapped
+host pool) is also held at rows that are not a multiple of a block's pass,
+at tails under 16 B and at unaligned host bases. ``verify_transfer`` on
+CUDA pools gives the
 verdicts the CPU version gives (which ``test_torch_faults.py`` holds against
 the reference's blake2b verdicts). A host tier on a CUDA node demotes into
 pinned memory and promotes back bit for bit.
@@ -19,7 +22,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core import transfer as TR  # noqa: E402
 from repro_torch.core.block_manager import BlockManager  # noqa: E402
-from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref  # noqa: E402
+from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref, ops  # noqa: E402
 from repro_torch.serving.host_tier import TierManager  # noqa: E402
 from repro_torch.serving.kv_cache import PagedKVCache  # noqa: E402
 from repro_torch.serving.prefix_cache import TIER_DRAM, GlobalPrefixIndex  # noqa: E402
@@ -64,6 +67,40 @@ def test_cuda_kv_transfer_host_route_bit_exact(direction, dtype, payload, n):
     assert kv_transfer.host_launches == before + (n > 0)
     assert kv_transfer.launches == dev_before
     assert torch.equal(dst.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# elements a row: 32772 B / 49156 B in fp32, 16386 B / 24578 B in bf16 (4-
+# and 2-byte words, a tail past the last 4 KiB pass), one element (4 / 2 B)
+# and five (20 / 10 B): tails under 16 B
+@pytest.mark.parametrize("payload", [8193, 12289, 1, 5])
+@pytest.mark.parametrize("offset", [0, 1])     # elements past the pinned buffer's base
+def test_cuda_kv_transfer_promote_edges(dtype, payload, offset):
+    """The promote at rows that are not a multiple of a block's pass of
+    16-byte words, tails under 16 B and a host base off the 16-byte grid
+    (the launch then takes narrower words)."""
+    _require_sm90()
+    rows, n = 40, 37
+    g = torch.Generator().manual_seed(payload + offset)
+    buf = torch.empty((rows * payload + 16,), dtype=TORCH[dtype], pin_memory=True)
+    buf.copy_(torch.randn(buf.shape, generator=g).to(TORCH[dtype]))
+    src = buf[offset:offset + rows * payload].view(rows, payload)
+    assert src.is_pinned()
+    dst = torch.randn((50, payload), generator=g).to(TORCH[dtype]).cuda()
+    design = ops.k1_design(payload * src.element_size(), src.data_ptr() | dst.data_ptr(),
+                           True, False, n)
+    assert design.design == "pages"
+    rng = np.random.RandomState(payload)
+    sp = torch.as_tensor(rng.randint(0, rows, size=n), dtype=torch.int32).cuda()
+    dp = torch.as_tensor(rng.permutation(50)[:n], dtype=torch.int32).cuda()
+    want = dst.cpu().clone()
+    kv_transfer_ref(src, want, sp.cpu(), dp.cpu())
+    before = kv_transfer.host_launches
+    kv_transfer(src, dst, sp, dp)
+    torch.cuda.synchronize()
+    assert kv_transfer.host_launches == before + 1
+    assert torch.equal(dst.cpu().view(INT[dtype]), want.view(INT[dtype]))
 
 
 @pytest.mark.gpu

@@ -3,7 +3,11 @@ MoE / VLM configs, on the card (``gpu`` marker; skipped without an sm_90
 device):
 
 * K1 on a sharded plan's fine ``(-1, head_dim)`` rows of 128 B (hd 64 bf16)
-  and 256 B (hd 64 fp32), bit-exact against its plain version;
+  and 256 B (hd 64 fp32), bit-exact against its plain version; its
+  small-row design at rows of 2 B to 2 KiB, aligned and unaligned bases,
+  0 / 1 / a count not a multiple of a pass's rows, more rows than the grid
+  holds at once, duplicate dst rows with identical bytes, untouched rows
+  kept;
 * K3 at granite-moe's head shapes (hd 64; 16/8, 8/4 and 4/2 heads: TP 1, 2
   and 4) and at the odd group sizes of llama4-scout (G = 5) and llava-next
   (G = 7), against its plain version, rows bit-identical alone and in a
@@ -16,6 +20,9 @@ device):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_tp_kernels.py
 """
+import dataclasses
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,7 +32,7 @@ from repro_torch.core.transfer import (ShardedTransferEngine, ShardSpec,  # noqa
                                        fine_page_rows, verify_sharded_transfer)
 from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref  # noqa: E402
 from repro_torch.kernels.kv_gather import (kv_transfer, kv_transfer_fine,  # noqa: E402
-                                           kv_transfer_ref)
+                                           kv_transfer_ref, ops)
 from repro_torch.kernels.paged_attention import (paged_decode_attention,  # noqa: E402
                                                  paged_decode_attention_stats_ref)
 
@@ -67,6 +74,102 @@ def test_cuda_kv_transfer_fine_rows_bit_exact(dtype):
     assert a.view(-1, hd).shape[1] * a.element_size() == (128 if dtype == "bfloat16" else 256)
     assert torch.equal(a, b) and torch.equal(c, b)
     assert not torch.equal(a, dst)
+
+
+def _byte_rows(rows, width, offset, seed):
+    """A (rows, width) uint8 pool whose base lies ``offset`` bytes past a
+    256-byte aligned allocation, filled with random bytes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randint(0, 256, (rows * width + 256,), generator=g, dtype=torch.uint8,
+                        device="cuda")
+    return buf[offset:offset + rows * width].view(rows, width)
+
+
+@pytest.mark.parametrize("width", [2, 10, 16, 64, 128, 256, 2048])
+@pytest.mark.parametrize("offset", [0, 1, 2, 4])
+@pytest.mark.parametrize("n", [0, 1, 1031, "rows_from + 7"])
+def test_cuda_kv_transfer_small_rows_bit_exact(width, offset, n):
+    """The small-row design, through the wrapper (below ops.ROWS_BELOW, from
+    ops.rows_from(width) rows) and forced at every width: every word width
+    the bases allow, a table of 0, 1, 1031 or rows_from + 7 rows (not a multiple
+    of any pass's rows), with two dst rows written twice from src rows of
+    identical bytes; the rows the table does not name keep their bytes."""
+    if n == "rows_from + 7":
+        n = ops.rows_from(width) + 7
+    src = _byte_rows(n + 500, width, offset, seed=width)
+    dst = _byte_rows(n + 600, width, (offset * 3) % 8, seed=width + 1)
+    chosen = ops.k1_design(width, src.data_ptr() | dst.data_ptr(), False, False, max(n, 1))
+    assert chosen.design == ("rows" if width < ops.ROWS_BELOW and n >= ops.rows_from(width)
+                             else "pages")
+    rows = ops.rows_design(width, chosen.word, max(n, 1),
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    rng = np.random.RandomState(n + width)
+    sp = rng.randint(0, n + 500, size=n)
+    dp = rng.permutation(n + 600)[:n]
+    if n > 2:                                  # duplicates: identical bytes, one dst twice
+        src[int(sp[1])] = src[int(sp[0])]
+        dp[1] = dp[0]
+    sp_t = torch.as_tensor(sp, dtype=torch.int32, device="cuda")
+    dp_t = torch.as_tensor(dp, dtype=torch.int32, device="cuda")
+    want = dst.clone()
+    kv_transfer_ref(src, want, sp_t, dp_t)
+    before = dst.clone()
+    launches = kv_transfer.launches
+    kv_transfer(src, dst, sp_t, dp_t)                  # the design k1_design picks
+    forced = before.clone()
+    ops.kv_transfer_design(src, forced, sp_t, dp_t, rows)
+    torch.cuda.synchronize()
+    assert kv_transfer.launches == launches + (n > 0)
+    assert torch.equal(dst, want) and torch.equal(forced, want)
+    kept = torch.ones(n + 600, dtype=torch.bool, device="cuda")
+    kept[dp_t.long()] = False
+    assert torch.equal(dst[kept], before[kept])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_kv_transfer_small_rows_stride_the_grid(dtype):
+    """More fine rows than the small-row grid holds in one pass of every
+    block (132 SMs x ROWS_BLOCKS_PER_SM blocks of 256 rows of 128 B), so the
+    blocks stride over the table; the same table with a grid of 1 and of 7
+    blocks gives the same bytes."""
+    hd = 64 if dtype == "bfloat16" else 32     # 128-byte rows
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n = 300_000
+    src = torch.randn((n + 1000, hd), generator=g, device="cuda").to(TORCH[dtype])
+    dst = torch.randn((n + 5000, hd), generator=g, device="cuda").to(TORCH[dtype])
+    sp = torch.randperm(n + 1000, generator=g, device="cuda")[:n].to(torch.int32)
+    dp = torch.randperm(n + 5000, generator=g, device="cuda")[:n].to(torch.int32)
+    design = ops.k1_design(128, src.data_ptr() | dst.data_ptr(), False, False, n,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    assert design.design == "rows" and design.lanes == 8
+    assert design.grid * (ops.THREADS // design.lanes) * design.in_flight < n
+    want = dst.clone()
+    kv_transfer_ref(src, want, sp, dp)
+    for d in (design, dataclasses.replace(design, grid=1), dataclasses.replace(design, grid=7)):
+        out = dst.clone()
+        ops.kv_transfer_design(src, out, sp, dp, d)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), d
+
+
+def test_cuda_kv_transfer_refuses_a_geometry_it_cannot_take():
+    """The launch checks the geometry it is given: lanes not a power of two,
+    a word the bases do not allow, more rows in flight than the kernel
+    holds, a page grid other than one block a row (more, fewer)."""
+    src = torch.zeros((8, 64), dtype=torch.bfloat16, device="cuda")
+    dst = torch.zeros((8, 64), dtype=torch.bfloat16, device="cuda")
+    sp = torch.arange(4, dtype=torch.int32, device="cuda")
+    bad = [ops.K1Design("rows", word=16, lanes=6, grid=1),
+           ops.K1Design("pages", word=16, grid=1),
+           ops.K1Design("rows", word=16, lanes=8, in_flight=ops.ROWS_IN_FLIGHT + 1, grid=1),
+           ops.K1Design("pages", word=16, grid=5),
+           ops.K1Design("pages", word=16, grid=3)]
+    src_odd = _byte_rows(8, 128, 1, seed=0)
+    dst_odd = _byte_rows(8, 128, 0, seed=1)
+    for d, (s, t) in zip(bad, [(src, dst), (src_odd, dst_odd), (src, dst), (src, dst),
+                               (src, dst)]):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops.kv_transfer_design(s, t, sp, sp, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Time K1's host route (``csrc/kv_transfer.cu``) on the card, with
-one-change variants of its source.
+"""Time K1's designs (``csrc/kv_transfer.cu``) on the card, one beside
+another in one process, with the PyTorch calls that make the same moves.
 
-The host tier moves whole blocks between a CUDA pool and a pinned host
-pool: demote (card -> host, the SMs write over PCIe) and promote (host ->
-card, the SMs read over PCIe). This tool times both on ``chip_smoke.py``'s
-tier shape (the 33 blocks of a 1056-token qwen3-1.7b prefix in float32,
-1848 pages of 128 KiB, 242 MB) for each variant, beside the PyTorch calls
-that make the same move on the copy engines (``index_select`` + ``copy_``
-into pinned memory, and the reverse) and a plain contiguous ``copy_`` of
-the same bytes each way. Each variant is compiled on its own (one ``nvcc``
-per variant, in parallel) into ``build/k1_host_ablate/``, launched through
-the wrapper, held bit-exact against the plain version, and also timed on
-K1's device-to-device case (chip_smoke's 1000-token bf16 P->D table, L2
-flushed), so a change that helps the host route but costs HBM shows.
+The host route: the host tier moves whole blocks between a CUDA pool and a
+pinned host pool, demote (card -> host) and promote (host -> card), timed on
+``chip_smoke.py``'s tier shape (the 33 blocks of a 1056-token qwen3-1.7b
+prefix in float32, 1848 pages of 128 KiB, 242 MB) in the design K1 ships
+for it (one 256-thread block a page over the pinned pool's mapped pages),
+beside ``index_select`` + ``copy_`` into pinned memory and the reverse
+(``copy_`` + ``index_copy_``), and a contiguous ``copy_`` of the same bytes
+each way, all on the copy engines. Three rounds in turns.
+
+The card route: the small-row design against one block a row
+(``ops.block_a_row``), with the L2 flushed before each call,
+
+* at row widths of 16 B to 64 KiB over ~19 MB of rows (one shard pair's
+  launch of chip_smoke's TP 2 -> 4 fine rows is 18.5 MB), at the decode
+  append's 448 rows of 2 KiB and the P->D transfer's 1792 pages of 64 KiB
+  (CUDA events), and at 128 B with 1-8 rows in flight a group: this picks
+  ``ops.ROWS_BELOW``;
+* over short tables, 48 to 6144 rows of 128 B to 1 KiB, device time only
+  (torch.profiler): the decode appends of granite-moe-1b-a400m are
+  2 x 24 x B rows (B = 1, 2, 4) of 1 KiB (bf16, TP 1), 512 B (bf16 TP 2,
+  fp32 TP 4) or 256 B (bf16 TP 4). This picks ``ops.rows_from``.
+
+Every design is first held bit-exact against the plain version. Nothing is
+compiled but the shipped library: the geometry is an argument of the
+launch.
 
     python3 tools/k1_host_ablate.py     # on a machine with an H100 and nvcc
 
-Prints the nvidia-smi name and power limit, then one JSON line per round
-(CUDA events, median of 10 calls a case).
+Prints the nvidia-smi name and power limit, the host time of one launch of
+the fine rows, one JSON line per host-route round (CUDA events, median of
+10 calls a case), one line for the card route and one for the short tables.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import json
 import pathlib
@@ -30,87 +43,14 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SRC = ROOT / "src/repro_torch/csrc/kv_transfer.cu"
-OUT = ROOT / "build/k1_host_ablate"
 
-LOOP = """  long long base = threadIdx.x;
-  for (; base + (kUnroll - 1) * kThreads < n; base += step) {
-    W v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = s[base + u * kThreads];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) d[base + u * kThreads] = v[u];
-  }
-  for (long long j = base; j < n; j += kThreads) d[j] = s[j];"""
-# each warp's kUnroll loads cover one contiguous run of 32 * kUnroll words
-WARP_CONTIG = """  const long long own = (long long)(threadIdx.x >> 5) * 32 * kUnroll + (threadIdx.x & 31);
-  long long c = 0;
-  for (; c + step <= n; c += step) {
-    W v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = s[c + own + u * 32];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) d[c + own + u * 32] = v[u];
-  }
-  for (long long j = c + threadIdx.x; j < n; j += kThreads) d[j] = s[j];"""
-KERNEL = "template <typename W>\n__global__ void kv_transfer_kernel("
-HINT = """template <typename W>
-__device__ __forceinline__ W ld_hint(const W* p) { return *p; }
-template <>
-__device__ __forceinline__ uint4 ld_hint<uint4>(const uint4* p) {
-  uint4 r;
-  asm volatile("ld.global.nc.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
-  return r;
-}
-
-"""
-DST_LINE = "  W* d = reinterpret_cast<W*>(dst + (long long)dst_pages[i] * row_bytes);\n"
-PREFETCH = DST_LINE + """  if (sizeof(W) == 16 && threadIdx.x == 0)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
-                 :: "l"(s), "r"((unsigned)row_bytes) : "memory");
-"""
-VARIANTS = {
-    "kernel": [],
-    "unroll_8": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
-    "unroll_16": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 16;")],
-    "threads_512": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
-    "no_nc": [("const char* __restrict__ src,", "const char* src,")],
-    "warp_contig": [(LOOP, WARP_CONTIG)],
-    "warp_contig_unroll_8": [(LOOP, WARP_CONTIG),
-                             ("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
-    "l2_256b": [(KERNEL, HINT + KERNEL),
-                ("v[u] = s[base + u * kThreads];", "v[u] = ld_hint(s + base + u * kThreads);")],
-    "bulk_prefetch": [(DST_LINE, PREFETCH)],
-}
-
-
-def build_variants(nvcc_flags, signatures) -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
-    base = SRC.read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = base
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"k1_host_ablate: variant {name}: the source no longer has "
-                                 f"{old[:60]!r}")
-            text = text.replace(old, new)
-        (OUT / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", *nvcc_flags, "-shared", "-o", str(OUT / f"{name}.so"),
-             str(OUT / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"k1_host_ablate: nvcc failed on {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        for fn in ("kv_transfer_launch", "kv_transfer_host_launch"):
-            getattr(lib, fn).argtypes = signatures[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+ROW_WIDTHS = (16, 128, 512, 1024, 2048, 4096, 8192, 65536)
+ROW_BYTES_TOTAL = 19 << 20
+CARD_BUFFER = 160 << 20                # each side's pool: the P->D case's 1792 pages fit
+FINE_IN_FLIGHT = (1, 2, 4, 8)
+SHORT_WIDTHS = (128, 256, 512, 1024)
+SHORT_ROWS = (48, 96, 192, 384, 768, 1056, 1536, 3072, 6144)
+ROUNDS = 3
 
 
 def main() -> int:
@@ -123,24 +63,21 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.configs import get_config
-    from repro_torch.core.layout import KVCacheSpec
     from repro_torch.core.transfer import TransferPlanner
-    from repro_torch.kernels import build
     from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_ref
+    from repro_torch.kernels.kv_gather import ops
     from repro_torch.serving.kv_cache import spec_for_model
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    build.library()
-    shipped = build._LIB
-    libs = build_variants(build.NVCC_FLAGS, build._SIGNATURES)
-    cfg = dataclasses.replace(get_config(cs.ARCH), dtype=torch.float32)
     dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
 
-    # the host route on the tier's shape (fp32)
+    # -- the host route on the tier's shape (fp32) -------------------------------
+    cfg = dataclasses.replace(get_config(cs.ARCH), dtype=torch.float32)
     spec = spec_for_model(cfg, 64)
     pool = torch.randn(spec.shape, generator=gen, device=dev)
     back = torch.zeros_like(pool)
@@ -155,60 +92,133 @@ def main() -> int:
 
     down, up = planner.plan("flowkv", blocks, hb), planner.plan("flowkv", hb, blocks)
     dsp, ddp, usp, udp = pages(down, "src"), pages(down, "dst"), pages(up, "src"), pages(up, "dst")
-    nbytes = int(dsp.numel()) * spec.payload * 4
+    npages = int(dsp.numel())
+    nbytes = npages * spec.payload * 4
     ids = torch.as_tensor(blocks, device=dev)
     hview = host[20:20 + n]
     dev_contig = pool[5:5 + n].clone()
-    # the device-to-device case: chip_smoke's 1000-token bf16 P->D table
-    dspec = KVCacheSpec(num_layers=cfg.num_layers, num_blocks=256, block_size=cfg.block_size,
-                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                        dtype=torch.bfloat16)
-    dsrc = torch.randn(dspec.shape, generator=gen, device=dev).to(torch.bfloat16)
-    ddst = torch.zeros_like(dsrc)
-    _, sp, dp = cs._transfer_case(torch, dspec, 256, 1000, gen)
-
-    for name, lib in libs.items():             # bit-exact first, every variant
-        build._LIB = lib
-        host.zero_()
-        back.zero_()
-        kv_transfer(pool, host, dsp, ddp)
-        kv_transfer(host, back, usp, udp)
-        torch.cuda.synchronize()
-        want = torch.zeros_like(pool)          # the pages the round trip did not name stay 0
-        want[blocks] = pool[blocks]
-        cs.check(torch.equal(back.view(torch.int32), want.view(torch.int32)),
-                 f"k1_host_ablate: {name} round trip not bit-exact")
-        ddst.zero_()
-        kv_transfer(dsrc, ddst, sp, dp)
-        ref = torch.zeros_like(dsrc)
-        kv_transfer_ref(dsrc, ref, sp, dp)
-        torch.cuda.synchronize()
-        cs.check(torch.equal(ddst.view(torch.int16), ref.view(torch.int16)),
-                 f"k1_host_ablate: {name} device-to-device not bit-exact")
-    build._LIB = shipped
-    print(json.dumps({"bytes": nbytes, "pages": int(dsp.numel()), "blocks": n}), flush=True)
-    for rnd in range(2):
-        row = {"round": rnd, "unit": "ms"}
-        row["library demote (index_select + copy_)"] = cs.time_ms(
-            torch, lambda: hview.copy_(pool.index_select(0, ids), non_blocking=True), reps=10)
-        row["library promote (copy_ + index_copy_)"] = cs.time_ms(
-            torch, lambda: back.index_copy_(0, ids, hview.to(dev, non_blocking=True)), reps=10)
-        row["contiguous copy_ card->host"] = cs.time_ms(
-            torch, lambda: hview.copy_(dev_contig, non_blocking=True), reps=10)
-        row["contiguous copy_ host->card"] = cs.time_ms(
-            torch, lambda: dev_contig.copy_(hview, non_blocking=True), reps=10)
-        for name, lib in libs.items():
-            build._LIB = lib
-            row[f"{name} demote"] = cs.time_ms(torch, lambda: kv_transfer(pool, host, dsp, ddp),
-                                               reps=10)
-            row[f"{name} promote"] = cs.time_ms(torch, lambda: kv_transfer(host, back, usp, udp),
-                                                reps=10)
-            row[f"{name} device P->D 1000 bf16"] = cs.time_ms(
-                torch, lambda: kv_transfer(dsrc, ddst, sp, dp), flush=flush)
-        build._LIB = shipped
+    want = torch.zeros_like(pool)                  # the pages a round trip names, else 0
+    want[blocks] = pool[blocks]
+    host.zero_()
+    kv_transfer(pool, host, dsp, ddp)
+    kv_transfer(host, back, usp, udp)
+    cs.sync(torch)
+    cs.check(torch.equal(back.view(torch.int32), want.view(torch.int32)),
+             "k1_host_ablate: the host round trip is not bit-exact")
+    print(json.dumps({"host_route": {"bytes": nbytes, "pages": npages, "blocks": n,
+                                     "promote": dataclasses.asdict(ops.k1_design(
+                                         spec.payload * 4, 0, True, False, npages, sms)),
+                                     "demote": dataclasses.asdict(ops.k1_design(
+                                         spec.payload * 4, 0, False, True, npages, sms))}}),
+          flush=True)
+    for rnd in range(ROUNDS):
+        row = {"round": rnd, "unit": "ms", "card": smi.stdout.strip()}
+        cases = {"demote (one block a page)": lambda: kv_transfer(pool, host, dsp, ddp),
+                 "promote (one block a page)": lambda: kv_transfer(host, back, usp, udp),
+                 "library demote (index_select + copy_)":
+                 lambda: hview.copy_(pool.index_select(0, ids), non_blocking=True),
+                 "library promote (copy_ + index_copy_)":
+                 lambda: back.index_copy_(0, ids, hview.to(dev, non_blocking=True)),
+                 "contiguous copy_ card->host": lambda: hview.copy_(dev_contig, non_blocking=True),
+                 "contiguous copy_ host->card": lambda: dev_contig.copy_(hview, non_blocking=True)}
+        for k, fn in cases.items():
+            row[k] = cs.time_ms(torch, fn, reps=10)
         row["bound_ms gen5 x16"] = nbytes / (16 * cs.PCIE_LANE_BPS[5]) * 1e3
         print(json.dumps(row), flush=True)
+    del pool, back, host, want, dev_contig
+
+    # -- the card route: rows of 16 B - 64 KiB ------------------------------------
+    src_flat = torch.randn(CARD_BUFFER // 2, generator=gen, device=dev).to(torch.bfloat16)
+    dst_flat = torch.zeros_like(src_flat)
+
+    def case(w, rows):
+        total = CARD_BUFFER // w                   # rows the buffers hold
+        sv, dv = src_flat.view(-1, w // 2), dst_flat.view(-1, w // 2)
+        sp = torch.randperm(total, generator=gen, device=dev)[:rows].to(torch.int32)
+        dp = torch.randperm(total, generator=gen, device=dev)[:rows].to(torch.int32)
+        return sv, dv, sp, dp
+
+    def exact(name, c, designs):
+        sv, dv, sp, dp = c
+        for dname, d in designs.items():
+            dst_flat.zero_()
+            ref = torch.zeros_like(dv)
+            ops.kv_transfer_design(sv, dv, sp, dp, d)
+            kv_transfer_ref(sv, ref, sp, dp)
+            cs.sync(torch)
+            cs.check(torch.equal(dv.view(torch.int16), ref.view(torch.int16)),
+                     f"k1_host_ablate: {name} {dname} not bit-exact")
+
+    card = {f"{w} B x {ROW_BYTES_TOTAL // w}": (w, ROW_BYTES_TOTAL // w) for w in ROW_WIDTHS}
+    card["append 2048 B x 448"] = (2048, 448)
+    card["P->D 65536 B x 1792"] = (65536, 1792)
+    row = {"unit": "ms", "card": smi.stdout.strip(), "rows_below": ops.ROWS_BELOW}
+    fine = None
+    for name, (w, rows) in card.items():
+        c = case(w, rows)
+        designs = {"one block a row": ops.block_a_row(w, 0, rows),
+                   "rows": ops.rows_design(w, 16, rows, sms)}
+        if w == 128:
+            fine = c
+            cap = sms * ops.ROWS_BLOCKS_PER_SM
+            designs.update({f"rows, {k} in flight": ops.K1Design(
+                "rows", word=16, lanes=8, in_flight=k, grid=min(cap, -(-rows // (32 * k))))
+                for k in FINE_IN_FLIGHT})
+        exact(name, c, designs)
+        sv, dv, sp, dp = c
+        row[f"{name} bound"] = (2 * rows * w + 2 * rows * 4) / 3.35e12 * 1e3
+        for dname, d in designs.items():
+            row[f"{name} {dname}"] = cs.time_ms(
+                torch, lambda: ops.kv_transfer_design(sv, dv, sp, dp, d), flush=flush)
+        sl, dl = sp.long(), dp.long()
+        row[f"{name} index_select + index_copy_"] = cs.time_ms(
+            torch, lambda: dv.index_copy_(0, dl, sv.index_select(0, sl)), flush=flush)
+    print(json.dumps({"host_us_a_call": _host_us(torch, fine)}), flush=True)
+    print(json.dumps(row), flush=True)
+
+    # -- short tables: the decode appends' row counts -----------------------------
+    row = {"unit": "ms device", "card": smi.stdout.strip(),
+           "rows_from": {w: ops.rows_from(w) for w in SHORT_WIDTHS}}
+    for w in SHORT_WIDTHS:
+        for rows in SHORT_ROWS:
+            c = case(w, rows)
+            designs = {"one block a row": ops.block_a_row(w, 0, rows),
+                       "rows": ops.rows_design(w, 16, rows, sms)}
+            exact(f"{w} B x {rows}", c, designs)
+            sv, dv, sp, dp = c
+            for dname, d in designs.items():
+                row[f"{w} B x {rows} {dname}"] = cs.device_only_ms(
+                    torch, lambda: ops.kv_transfer_design(sv, dv, sp, dp, d),
+                    "kv_transfer_rows" if d.design == "rows" else "kv_transfer_kernel",
+                    flush=flush)
+            row[f"{w} B x {rows} shipped"] = ops.k1_design(w, 0, False, False, rows, sms).design
+    print(json.dumps(row), flush=True)
     return 0
+
+
+def _host_us(torch, case) -> dict:
+    """Host microseconds a call of the public wrappers over the fine rows
+    (the launch is asynchronous: this is its enqueue), beside the library's
+    two calls, over 200 calls after a warm-up."""
+    import time
+
+    from repro_torch.kernels.kv_gather import kv_transfer, kv_transfer_fine
+
+    sv, dv, sp, dp = case
+    sl, dl = sp.long(), dp.long()
+    out = {}
+    for name, fn in (("kv_transfer", lambda: kv_transfer(sv, dv, sp, dp)),
+                     ("kv_transfer_fine", lambda: kv_transfer_fine(sv, dv, sp, dp, sv.shape[-1])),
+                     ("index_select + index_copy_",
+                      lambda: dv.index_copy_(0, dl, sv.index_select(0, sl)))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 if __name__ == "__main__":
