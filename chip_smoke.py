@@ -21,7 +21,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  and bfloat16 (stated tolerances), each B=8 row bit-identical
                  to the same row alone at B=1;
                  K4 cold (S = T = 1500), suffix (S = 400 at q_offset 1056)
-                 and at gemma-2b's head shape, in both dtypes (bf16 on the
+                 and at gemma-2b's head shape (hd 256) and stablelm-12b's
+                 (32/8, hd 160: cold 1500, suffix 400 at q_offset 1056,
+                 suffix rows bit-identical), in both dtypes (bf16 on the
                  tensor cores; fp32 with its launch plan and its share of
                  the FMA bound), sim_calibrate's bf16 shapes (cold 4096
                  and 256, suffix 200 at q_offset 1056), plus its suffix rows bit-identical to its
@@ -185,6 +187,30 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  1e-3 of its max |g|, the updated master within 1e-6;
                  granite's, recurrentgemma's and seamless's attention
                  tempered. K4 and K3 launch no time in the whole phase.
+12. ``dryrun`` — the dry-run accounting (``launch/dryrun.py``). First
+                 three cells of full-width, full-depth qwen3-1.7b (bf16,
+                 seed 0) cut only in batch run on the card, alone (their
+                 steps are host-bound): prefill_32k at B=1, decode_32k at B=8 and
+                 train_4k at B=1 under remat "full". Each holds the
+                 allocator's growth for its resident tensors (params, + the
+                 cache, or the train state) within RESIDENT_REL of the
+                 predicted bytes, the FLOPs counted at that shape over
+                 one step's device time (torch.profiler) to at most
+                 FLOP_SHARE_MAX of 989 TFLOP/s and the bytes counted to at
+                 most BYTE_SHARE_MAX of 3.35 TB/s; it prints the step's peak
+                 beside resident + predicted temp bytes and the roofline's
+                 time beside the device time and the wall. Then every
+                 (arch x shape) cell on both production meshes and the ten
+                 transfer cells are traced on the meta device in a pool of
+                 spawned processes (one trace an (arch, shape), shared by
+                 its meshes), with the three cells' predictions; one line a
+                 cell (FLOPs per chip, resident bytes per device, roofline
+                 terms, bottleneck); a failed cell fails the phase. Beside
+                 the pool, K4 bf16 cold at S = T = 32,768: its first and
+                 last 256 rows against the plain version computing just
+                 those rows, within K4's bf16 tolerance, timed beside SDPA;
+                 the fp32 kernel's split workspace at that shape is stated,
+                 not run.
 
 The weights are random, made from a seed. The last lines are the kernels
 summary, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -582,15 +608,18 @@ def _sdpa(torch, q, k, v, q_offset, causal=True):
 
 def _k4_cases(torch, peaks, gen, flush) -> dict:
     """K4 against its plain version: cold S = T = 1500 and suffix S = 400
-    over T = 1456 at qwen3-1.7b's heads, and gemma-2b's heads (hd 256,
-    KV 1, H 8) cold at 1024, in float32 and bfloat16; in bfloat16 also
+    over T = 1456 at qwen3-1.7b's heads, gemma-2b's heads (hd 256, KV 1,
+    H 8) cold at 1024 and stablelm-12b's (hd 160, KV 8, H 32) cold at 1500
+    and suffix 400 over 1456, in float32 and bfloat16; in bfloat16 also
     sim_calibrate's shapes: its sweep's longest prompt (cold 4096), a
     prompt below flash_threshold (cold 256) and the parity run's follower
-    (suffix 200 over 1256); and the suffix rows of the fp32 kernel
-    bit-identical to the same rows of its cold call."""
+    (suffix 200 over 1256); and the suffix rows bit-identical to the same
+    rows of the cold call, at qwen3-1.7b's and stablelm-12b's heads."""
     both = (torch.float32, torch.bfloat16)
     cases = [(both, "cold", 1500, 0, 16, 8, 128), (both, "suffix", 400, 1056, 16, 8, 128),
              (both, "cold gemma-2b heads", 1024, 0, 8, 1, 256),
+             (both, "cold stablelm-12b heads", 1500, 0, 32, 8, 160),
+             (both, "suffix stablelm-12b heads", 400, 1056, 32, 8, 160),
              ((torch.bfloat16,), "cold, the sweep's longest", 4096, 0, 16, 8, 128),
              ((torch.bfloat16,), "cold, below flash_threshold", 256, 0, 16, 8, 128),
              ((torch.bfloat16,), "suffix, the parity follower", 200, 1056, 16, 8, 128)]
@@ -606,6 +635,7 @@ def _k4_cases(torch, peaks, gen, flush) -> dict:
     # row independence: rows 1056.. of the cold call == the suffix call's rows
     for dtype in both:
         _k4_rows_identical(torch, gen, dtype, 1456, 16, 8, 128, (1056, 1000, 1455))
+        _k4_rows_identical(torch, gen, dtype, 1456, 32, 8, 160, (1056, 1455))
     # non-causal, at seamless-m4t-large-v2's encoder heads (e2e_state)
     for dtype in both:
         for s in SEAMLESS_K4_LENS:
@@ -3113,6 +3143,247 @@ def phase_train(torch, env) -> None:
 
 
 # ---------------------------------------------------------------------------
+# dryrun: the dry-run accounting of every cell, and three reduced cells of
+# qwen3-1.7b measured on the card against it
+# ---------------------------------------------------------------------------
+DRYRUN_WORKERS = 8                     # meta-trace processes (K4 at 32k runs beside them)
+# (shape, batch on the card, config overrides): each cell cut only in batch;
+# train_4k under the remat mode train_flash runs S=2048 with
+DRYRUN_CARD = (("prefill_32k", 1, ""), ("decode_32k", 8, ""), ("train_4k", 1, "remat=full"))
+RESIDENT_REL = 5e-3                    # predicted resident bytes vs the allocator's growth
+FLOP_SHARE_MAX = 1.05                  # counted FLOPs / device time / 989 TFLOP/s
+BYTE_SHARE_MAX = 1.05                  # counted bytes / device time / 3.35 TB/s
+K4_LONG = 32768                        # K4 held at prefill_32k's length, bf16 cold
+K4_LONG_ROWS = 256                     # first and last rows held against the plain version
+
+
+def _cell_line(r) -> dict:
+    line = dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"], status=r["status"])
+    if r["status"] == "ok" and "roofline" in r:
+        rf = r["roofline"]
+        line.update(flops_per_chip=rf["flops"], resident_bytes_per_device=r[
+            "resident_bytes_per_device"], compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+            collective_s=rf["collective_s"], bottleneck=rf["bottleneck"],
+            temp_bytes_per_device=r["memory_analysis"]["temp_size_in_bytes"],
+            trace_s=r["lower_s"])
+    elif r["status"] == "ok":                         # a transfer cell
+        line.update(pool_bytes_global=r["pool_bytes_global"], plan=r.get("plan"),
+                    k1_bytes=r.get("op_counts", {}).get("bytes"))
+    else:
+        line["why"] = r.get("why") or r.get("error")
+    return line
+
+
+def _card_cell(torch, shape: str, batch: int, opts: str) -> dict:
+    """One reduced cell of full-width, full-depth qwen3-1.7b (bf16, seeded
+    init) on the card: the allocator's growth for its resident tensors, one
+    step's peak, device time (torch.profiler) and wall."""
+    import numpy as np
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.launch.dryrun import _parse_opts
+    from repro_torch.models.api import get_model
+    from repro_torch.training import optimizer as OPT
+
+    from torch.profiler import ProfilerActivity, profile
+
+    t_setup = time.perf_counter()
+    kind, seq, _ = SHAPES[shape]
+    cfg = dataclasses.replace(get_config(ARCH), **_parse_opts(opts))
+    model = get_model(cfg)
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    rng = np.random.RandomState(SEED)
+    if kind == "train":
+        state = OPT.init_state(model.init(SEED, DEVICE))
+        sync(torch)
+        resident = torch.cuda.memory_allocated() - base
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))).to(DEVICE)
+        batch_t = {"tokens": toks.int(), "labels": toks.int()}
+        step_fn = ST.make_train_step(model, opt_cfg=OPT.AdamWConfig(lr=TRAIN_LR,
+                                                                   warmup_steps=1))[0]
+        box = {"state": state}
+        del state
+
+        def step():
+            box["state"], met = step_fn(box["state"], batch_t)
+            return met["loss"]
+    else:
+        params = model.init(SEED, DEVICE)
+        if kind == "decode":
+            cache = model.init_cache(batch, seq, device=DEVICE)
+        sync(torch)
+        resident = torch.cuda.memory_allocated() - base
+        if kind == "prefill":
+            toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))).to(DEVICE)
+            batch_t = {"tokens": toks.int()}
+
+            def step():
+                return model.prefill(params, batch_t)[0]
+        else:
+            tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch,))).to(DEVICE).int()
+            # every step writes the last slot and reads all seq keys (the
+            # input length is not advanced: decode returns a new one)
+            last = torch.full((batch,), seq - 1, dtype=torch.int32, device=DEVICE)
+
+            def step():
+                return model.decode(params, tok, {**cache, "length": last})[0]
+    stages = {"setup": time.perf_counter() - t_setup}
+    t1 = time.perf_counter()
+    out = step()                                      # warm-up
+    sync(torch)
+    check(bool(torch.isfinite(out.float()).all()), f"dryrun {shape}: non-finite output")
+    del out
+    _free(torch)
+    stages["warm_up"] = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step()
+    sync(torch)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    # the device's kernels only: a CPU trace of a train step's ~10^5 ops
+    # costs the profiler more than the step
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        sync(torch)
+    by_kernel = _device_by_kernel(prof)
+    stages["profiled"] = time.perf_counter() - t1
+    device_s = sum(by_kernel.values()) / 1e6
+    check(device_s > 0, f"dryrun {shape}: the profiler saw no device time")
+    top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+    _free(torch)
+    return dict(resident_bytes=resident, peak_bytes=peak, wall_s=wall, device_s=device_s,
+                device_busy_share=device_s / wall, stages_s=stages,
+                top_kernels_ms=[(k[:80], v / 1e3) for k, v in top])
+
+
+def _k4_long(torch, env) -> dict:
+    """K4 bf16 cold at S = T = 32,768 (qwen3-1.7b's heads): its first and
+    last K4_LONG_ROWS rows against the plain version computing just those
+    rows, timed beside SDPA; the fp32 kernel's split workspace at this shape
+    stated from its launch plan, not run."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_op, flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ops import flops as k4_flops, launch_plan
+
+    H, KV, hd, s, n = 16, 8, 128, K4_LONG, K4_LONG_ROWS
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)  # noqa: E731
+    q, k, v = mk(1, s, H, hd), mk(1, s, KV, hd), mk(1, s, KV, hd)
+    before = flash_prefill_op.launches
+    out = flash_prefill_op(q, k, v)
+    sync(torch)
+    check(flash_prefill_op.launches == before + 1, "K4 at 32k did not launch")
+    errs = {}
+    for name, lo in (("first", 0), ("last", s - n)):
+        got = out[:, lo:lo + n].float()
+        qs, ks, vs = q[:, lo:lo + n], k[:, :lo + n], v[:, :lo + n]
+        same = flash_prefill_ref(qs, ks, vs, q_offset=lo)
+        up = flash_prefill_ref(qs.float(), ks.float(), vs.float(), q_offset=lo)
+        err = float((got - same.float()).abs().max())
+        d = (got - up).abs()
+        errs[name] = dict(rows=[lo, lo + n], max_abs_err=err, vs_upcast_err=float(d.max()))
+        check(err <= K4_BF16_TOL and bool((d <= up.abs() * 2.0 ** -8 + 1e-5).all()),
+              f"K4 at 32k disagrees on its {name} rows: {errs[name]}")
+        del got, same, up, d
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEVICE)
+    t4 = time_ms(torch, lambda: flash_prefill_op(q, k, v), reps=5, warmup=1, flush=flush)
+    # SDPA on k / v repeated to H heads, held to its fused backends: its
+    # math backend would form the 32k x 32k scores
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sd = _sdpa(torch, q, k.repeat_interleave(H // KV, dim=2), v.repeat_interleave(H // KV, dim=2), 0)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        tl = time_ms(torch, sd, reps=5, warmup=1, flush=flush)
+    del sd
+    fl = k4_flops(1, s, s, H, hd, True, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    b4, b4_by = bound_ms(nbytes, fl, env["peaks"], "bf16")
+    plan = launch_plan(1, s, s, H, KV, hd, True,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    fp32_ws = plan["tiles"] * KV * plan["splits"] * plan["pairs"] * (hd + 4) * 4
+    del q, k, v, out, flush
+    _free(torch)
+    return dict(S=s, T=s, heads=[H, KV, hd], rows_checked=errs, tol=K4_BF16_TOL, ms=t4,
+                library_ms=tl, bound_ms=b4, bound_by=b4_by, flops=fl,
+                tflops=fl / t4 / 1e9, bound_share=b4 / t4,
+                fp32_split_workspace_bytes=fp32_ws, fp32_plan=plan)
+
+
+def phase_dryrun(torch, env) -> None:
+    """Phase 12: every dry-run cell on meta (a pool of spawned processes);
+    three reduced qwen3-1.7b cells measured on the card against their
+    predictions; K4 at 32k against its plain version."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    # the card cells first, alone: their steps are host-bound, and the
+    # meta traces would take the host from them
+    card = {shape: _card_cell(torch, shape, b, opts) for shape, b, opts in DRYRUN_CARD}
+    card_s = time.perf_counter() - t0
+    workers = max(1, min(DRYRUN_WORKERS, os.cpu_count() or 1))
+    with cf.ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as ex:
+        preds = {shape: ex.submit(D.predict, ARCH, shape, b, opts)
+                 for shape, b, opts in DRYRUN_CARD}
+        cells = [ex.submit(D.run_group, *g) for g in D.all_groups(longest_first=True)]
+        k4 = _k4_long(torch, env)                     # device-bound: beside the pool
+        recs = [r for f in cells for r in f.result()]
+        preds = {k: f.result() for k, f in preds.items()}
+    meta_s = time.perf_counter() - t0 - card_s
+    for r in recs:
+        emit("dryrun", sub="cell", **_cell_line(r))
+    failed = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+              if r["status"] == "failed"]
+    check(not failed, f"dryrun: failed cells {failed}")
+    peak_flops = env["peaks"]["bf16"]
+    rows = []
+    for shape, b, opts in DRYRUN_CARD:
+        p, c = preds[shape], card[shape]
+        rel = abs(c["resident_bytes"] - p["resident_bytes"]) / p["resident_bytes"]
+        tflops = p["flops"] / c["device_s"] / 1e12
+        share = p["flops"] / c["device_s"] / peak_flops
+        byte_share = p["bytes"] / c["device_s"] / env["peaks"]["hbm"]
+        roof = p["roofline"]
+        predicted_s = max(roof["compute_s"], roof["memory_s"])
+        row = dict(shape=shape, batch=b, opts=opts, predicted_resident_bytes=p["resident_bytes"],
+                   measured_resident_bytes=c["resident_bytes"], resident_rel_err=rel,
+                   measured_peak_bytes=c["peak_bytes"],
+                   predicted_peak_bytes=p["resident_bytes"] + p["temp_bytes"],
+                   peak_ratio=c["peak_bytes"] / (p["resident_bytes"] + p["temp_bytes"]),
+                   counted_flops=p["flops"], counted_bytes=p["bytes"], tflops=tflops,
+                   flop_share=share, tbytes_per_s=p["bytes"] / c["device_s"] / 1e12,
+                   byte_share=byte_share, roofline_s=predicted_s, roofline_bound=roof["bottleneck"],
+                   device_s=c["device_s"], wall_s=c["wall_s"],
+                   device_over_roofline=c["device_s"] / predicted_s,
+                   device_busy_share=c["device_busy_share"], stages_s=c["stages_s"],
+                   kernels_counted=p["kernels"],
+                   top_kernels_ms=c["top_kernels_ms"], meta_trace_s=p["trace_s"])
+        rows.append(row)
+        emit("dryrun", sub="card", arch=ARCH, **row)
+        check(rel <= RESIDENT_REL, f"dryrun {shape}: resident bytes off by {rel}")
+        check(share <= FLOP_SHARE_MAX,
+              f"dryrun {shape}: {tflops} TFLOP/s is {share} of the peak: the count is wrong")
+        # the counted bytes are the step's least traffic (each operand read and
+        # each result written once): a sound count cannot beat HBM's rate
+        check(byte_share <= BYTE_SHARE_MAX,
+              f"dryrun {shape}: counted bytes move at {byte_share} of HBM's rate: "
+              "the count is wrong")
+    emit("dryrun", sub="k4_32k", **k4)
+    emit("dryrun", done=True, cells=len(recs),
+         ok=sum(r["status"] == "ok" for r in recs),
+         skipped=sum(r["status"] == "skipped" for r in recs), workers=workers,
+         card_s=card_s, meta_s=meta_s, seconds=time.perf_counter() - t0,
+         limits=dict(resident_rel=RESIDENT_REL, flop_share_max=FLOP_SHARE_MAX,
+                     byte_share_max=BYTE_SHARE_MAX,
+                     k4_bf16=K4_BF16_TOL))
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -3140,6 +3411,7 @@ def main() -> int:
     phase_sim_calibrate(torch, env)
     state_counts, state_fp32_counts = phase_e2e_state(torch, env)
     phase_train(torch, env)
+    phase_dryrun(torch, env)
     promote = host_route["promote"]
     rows["kv_transfer_host"] = dict(
         promote, bound_by="bytes",

@@ -1,5 +1,7 @@
 """Config registry of the PyTorch port (reference: ``repro/configs``):
-every architecture of the reference, each in a module of the same name."""
+every architecture of the reference, each in a module of the same name,
+and the dry-run's cells (``SHAPES``, ``shape_applicable``, ``list_cells``),
+kept as the port's own copies."""
 from __future__ import annotations
 
 import importlib
@@ -24,7 +26,16 @@ _REGISTRY: Dict[str, str] = {
     "llama31-70b": "llama31_70b",
 }
 
+ASSIGNED_ARCHS: List[str] = list(_REGISTRY)[:10]
 ALL_ARCHS: List[str] = list(_REGISTRY)
+
+# The assigned input-shape set: shape name -> (kind, seq_len, global_batch).
+SHAPES = {
+    "train_4k": ("train", 4096, 256),
+    "prefill_32k": ("prefill", 32768, 32),
+    "decode_32k": ("decode", 32768, 128),
+    "long_500k": ("decode", 524288, 1),
+}
 
 
 def _module(arch: str):
@@ -39,3 +50,22 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    """Whether a dry-run cell applies to this arch (DESIGN.md §4)."""
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skip: pure full-attention arch has no sub-quadratic "
+                       "mechanism at 524k context (DESIGN.md §4)")
+    return True, ""
+
+
+def list_cells(archs=None):
+    """All (arch, shape_name) dry-run cells with applicability flags."""
+    out = []
+    for arch in (archs or ASSIGNED_ARCHS):
+        cfg = get_config(arch)
+        for shape_name in SHAPES:
+            ok, why = shape_applicable(cfg, shape_name)
+            out.append({"arch": arch, "shape": shape_name, "applicable": ok, "why": why})
+    return out

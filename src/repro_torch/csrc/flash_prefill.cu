@@ -21,7 +21,7 @@
 //
 // float32 -- flash_prefill_fp32_kernel<HD, NW>, plain fp32 FMA (TF32 would
 // break the fp32 tolerance), NW warps a block. Each warp owns WP (row, head)
-// pairs of one kv-head (16, or 8 at hd 256) for the whole key sweep, so
+// pairs of one kv-head (16, or 8 above hd 128) for the whole key sweep, so
 // every reduction of a row stays inside its warp: lane (pg, kg) = (lane / 8,
 // lane % 8) holds pairs pg + 4a (a < TM = WP / 4) and, in the softmax, keys
 // kg + 8c of each key tile. What bounds an FMA kernel on Hopper is shared
@@ -37,14 +37,14 @@
 // through the same buffer, __syncwarp only), so the rescale by each pair's m
 // stays in registers. Row
 // max and sum reduce over the 8 key lanes by three fixed xor shuffles. K/V
-// tiles of BK keys (64 at hd <= 64, 32 at 128, 16 at 256) are
+// tiles of BK keys (64 at hd <= 64, 32 at 128, 16 at 160 and 256) are
 // double-buffered in shared memory by cp.async 16-byte copies: tile t+1 is
 // in flight while tile t computes, one __syncthreads a tile. The division
 // by sqrt(hd) is div_sqrt_hd (equal to div.rn).
 //
 // Keys are split into runs of kKeysPerSplit = 512 counted from key 0, one
 // block per (query tile, split, kv-head, batch), so the short suffix and the
-// hd-256 shapes fill the card and no block runs the whole causal triangle.
+// hd-160/256 shapes fill the card and no block runs the whole causal triangle.
 // A tile whose rows need one split writes out directly; otherwise each
 // split writes its unnormalised (acc, m, l) to a workspace, takes a ticket,
 // and the last block of the tile combines each row's splits in split order
@@ -56,12 +56,12 @@
 // bfloat16 -- flash_prefill_mma_kernel<HD, NG>, on the tensor cores with
 // mma.sync.m16n8k16 (bf16 inputs, fp32 accumulators). A block holds NG
 // groups of 16 (row, head) pairs of one kv-head (2 groups, or 4 when G > 32)
-// and two warps per group. Key tiles of BK = 64 keys (32 at hd 256) from
+// and two warps per group. Key tiles of BK = 64 keys (32 above hd 128) from
 // key 0 are double-buffered in shared memory by cp.async (rows padded by
 // 16 bytes, so ldmatrix is free of bank conflicts); each tile is an even and
 // an odd chunk of BK/2 keys, and a group's two warps take one chunk each,
 // with their own (m, l, acc), merged once at the end -- twice the warps on
-// the card for the same work, which the short suffix and hd-256 shapes
+// the card for the same work, which the short suffix and hd-160/256 shapes
 // need. Fragments come from ldmatrix (.trans for V), loaded a step ahead of
 // their MMAs; q's fragments stay in registers at hd <= 128. S = Q.K^T lands
 // in fp32 accumulator fragments and the online softmax runs on them in
@@ -558,7 +558,7 @@ int launch_fp32_nw(const void* q, const void* k, const void* v, void* out, float
     case 2: K4_FP32(2);
     case 4: K4_FP32(4);
     case 8:
-      if constexpr (HD == 256) { K4_FP32(8); }
+      if constexpr (HD > 128) { K4_FP32(8); }
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -576,6 +576,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* pa
     case 32: K4_HD(32);
     case 64: K4_HD(64);
     case 128: K4_HD(128);
+    case 160: K4_HD(160);
     case 256: K4_HD(256);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -952,6 +953,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
     case 32: return launch_mma_ng<32>(q, k, v, out, B, S, Tk, H, KV, q_offset, causal, st);
     case 64: return launch_mma_ng<64>(q, k, v, out, B, S, Tk, H, KV, q_offset, causal, st);
     case 128: return launch_mma_ng<128>(q, k, v, out, B, S, Tk, H, KV, q_offset, causal, st);
+    case 160: return launch_mma_ng<160>(q, k, v, out, B, S, Tk, H, KV, q_offset, causal, st);
     case 256: return launch_mma_ng<256>(q, k, v, out, B, S, Tk, H, KV, q_offset, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }

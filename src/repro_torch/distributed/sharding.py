@@ -14,7 +14,7 @@ slicing follows the reference's rule walk exactly, without
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 # logical axis -> ordered mesh-axis candidates. Each candidate is a tuple of
 # mesh axes to use JOINTLY for that dim (e.g. batch over pod x data).
@@ -44,7 +44,8 @@ class AbstractMesh:
     """A mesh as ``spec_for`` sees it: axis names and their sizes, no devices.
 
     The single-device TP emulation (``distributed/tp.py``) plans its
-    parameter slices for a ``model`` axis of size ``tp`` with it.
+    parameter slices for a ``model`` axis of size ``tp`` with it, and the
+    dry-run (``launch/mesh.py``) its production meshes.
     """
 
     def __init__(self, **sizes: int):
@@ -96,3 +97,42 @@ def tree_specs(shapes_tree, axes_tree, mesh: AbstractMesh,
     if isinstance(shapes_tree, dict):
         return {k: tree_specs(v, axes_tree[k], mesh, rules) for k, v in shapes_tree.items()}
     return spec_for(tuple(shapes_tree.shape), axes_tree, mesh, rules)
+
+
+class Sharding(NamedTuple):
+    """A spec tuple bound to its abstract mesh: the port's stand-in for the
+    reference's ``NamedSharding``. One GPU places nothing by it; the dry-run
+    reads it to size shards (:func:`bytes_per_device`)."""
+    mesh: AbstractMesh
+    spec: Tuple[object, ...]
+
+
+def tree_shardings(shapes_tree, axes_tree, mesh: AbstractMesh,
+                   rules: Optional[Dict] = None):
+    """:func:`tree_specs` with every spec bound to ``mesh``."""
+    specs = tree_specs(shapes_tree, axes_tree, mesh, rules)
+
+    def bind(s):
+        return {k: bind(v) for k, v in s.items()} if isinstance(s, dict) else Sharding(mesh, s)
+
+    return bind(specs)
+
+
+def scalar_spec() -> Tuple[object, ...]:
+    return ()
+
+
+def bytes_per_device(shapes_tree: Any, specs_tree: Any, mesh: AbstractMesh) -> int:
+    """Per-device bytes of a (shapes, specs) pair of parallel nested dicts:
+    each leaf's bytes floor-divided by the product of the mesh axes its spec
+    names, the reference's integer arithmetic (``sharding.py:134-148``)."""
+    if isinstance(shapes_tree, dict):
+        return sum(bytes_per_device(v, specs_tree[k], mesh) for k, v in shapes_tree.items())
+    sizes = mesh_axis_sizes(mesh)
+    shard = 1
+    for entry in specs_tree:
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        shard *= math.prod(sizes[a] for a in axes)
+    return math.prod(shapes_tree.shape) * shapes_tree.dtype.itemsize // max(1, shard)

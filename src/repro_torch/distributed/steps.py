@@ -150,3 +150,32 @@ def make_decode_step(model: Model):
         return model.decode(params, token, cache)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# FlowKV cross-pod KV transfer: the pool the dry-run's transfer cell plans
+# ---------------------------------------------------------------------------
+def kv_transfer_specs(cfg, mesh: SH.AbstractMesh, seq: int, batch: int):
+    """The transfer program's pool as a ``meta`` tensor, and its spec.
+
+    Pool shape (num_blocks, L, 2, payload): block-major (paper Eq. 5), block
+    dim sharded over "pod" so each pod owns its page slab. An attention-free
+    arch (ssm) transfers its state tensor instead. ``mesh`` is unused, as in
+    the reference.
+    """
+    from repro_torch.core.layout import KVCacheSpec
+
+    del mesh
+    n_attn = cfg.num_attention_layers()
+    if n_attn == 0:   # ssm: transfer the state tensor instead
+        shape = (batch, cfg.num_layers, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        return torch.empty(shape, dtype=cfg.dtype, device="meta"), ("pod",)
+    kv_spec = KVCacheSpec(
+        num_layers=n_attn,
+        num_blocks=batch * -(-seq // cfg.block_size),
+        block_size=cfg.block_size,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim,
+        dtype=cfg.dtype,
+    )
+    return torch.empty(kv_spec.shape, dtype=cfg.dtype, device="meta"), ("pod",)

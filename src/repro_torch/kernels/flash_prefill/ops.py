@@ -7,8 +7,11 @@ between the two. The kernel masks its own ragged edges, so nothing is
 padded. ``flash_prefill_op.launches`` counts kernel launches,
 ``flash_prefill_op.suffix_launches`` those of them with ``q_offset > 0`` and
 ``flash_prefill_op.noncausal_launches`` those with ``causal=False`` (the
-enc-dec encoder's bidirectional attention). The kernel has no backward, so
-the op refuses inputs that require grad, on every device.
+enc-dec encoder's bidirectional attention). On ``meta`` tensors (the
+dry-run) it launches nothing: it checks what the card would check, returns
+an output of the right shape and reports the launch's FLOPs (:func:`flops`)
+and bytes to the op counter (``obs/counting``). The kernel has no backward,
+so the op refuses inputs that require grad, on every device.
 
 The fp32 kernel takes a launch plan from ``launch_plan``, a pure function of
 the shapes and the card's SM count: how many warps (so how many (row, head)
@@ -28,7 +31,7 @@ import torch
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 _MAX_GROUP = 64
 # Keys a split of the fp32 kernel covers (kKeysPerSplit in the source). A
 # constant: a row's result is bit-identical across calls only for one split
@@ -47,7 +50,7 @@ def launch_plan(b: int, s: int, t: int, h: int, kv: int, hd: int, causal: bool,
                 sm_count: int) -> dict:
     """The fp32 kernel's grid for q (b, s, h, hd) over t keys in kv heads.
 
-    ``warps`` a block (4, 2 or 1; 8 at hd 256 when G > 32, so a block holds
+    ``warps`` a block (4, 2 or 1; 8 above hd 128 when G > 32, so a block holds
     a whole row): the most that still give ``2 * sm_count`` blocks that have
     work, else the fewest. ``pairs`` = warps * WP (row, head) pairs a block,
     ``rows`` query rows a tile, ``tiles`` query tiles per (batch, kv-head),
@@ -80,6 +83,14 @@ def launch_plan(b: int, s: int, t: int, h: int, kv: int, hd: int, causal: bool,
     return plans[-1]
 
 
+def flops(b: int, s: int, t: int, h: int, hd: int, causal: bool, q_offset: int) -> int:
+    """The kernel's work: 4 * hd FLOPs (q.k and p.v) a (query, key) pair and
+    head, over the pairs it computes: the causal triangle after ``q_offset``
+    resident keys, or all ``s * t`` pairs when not causal."""
+    pairs = s * q_offset + s * (s + 1) // 2 if causal else s * t
+    return 4 * b * h * hd * pairs
+
+
 def _sm_count(dev: torch.device) -> int:
     n = _SM_COUNT.get(dev.index)
     if n is None:
@@ -110,10 +121,8 @@ def flash_prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     if dev.type == "cpu":
         return flash_prefill_ref(q, k, v, causal=causal, q_offset=q_offset)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_prefill_op: unsupported device {dev}")
-    from repro_torch.kernels import build, ticket_counters
-
     if k.device != dev or v.device != dev:
         raise ValueError(f"q on {dev}, k on {k.device}, v on {v.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -126,6 +135,14 @@ def flash_prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s == 0 or b == 0:
         return out
     q, k, v = (_aligned(x) for x in (q, k, v))
+    if dev.type == "meta":          # the dry-run: count the launch's work, compute nothing
+        from repro_torch.obs.counting import report
+
+        report("flash_prefill", flops(b, s, t, h, hd, causal, q_offset),
+               (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+        return out
+    from repro_torch.kernels import build, ticket_counters
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         nw = nq = ns = 0
@@ -152,7 +169,8 @@ def flash_prefill_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, 16-byte aligned (the kernel loads 16-byte vectors)."""
+    """Contiguous, 16-byte aligned (the kernel loads 16-byte vectors; a meta
+    tensor's address reads 0)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 

@@ -16,7 +16,8 @@ in ``launches``: ``kv_gather`` and ``kv_scatter`` do not add to
 memory (the host tier) count in ``kv_transfer.host_launches`` instead, and
 its launches over a sharded plan's fine ``(-1, head_dim)`` rows (one shard
 pair of a tensor-parallel transfer) go through ``kv_transfer_fine`` and
-count there.
+count there. On ``meta`` tensors (the dry-run) K1 moves nothing and
+reports its bytes to the op counter (``obs/counting``).
 """
 from __future__ import annotations
 
@@ -42,7 +43,9 @@ def _check(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     if src_pool.dtype != dst_pool.dtype:
         raise TypeError(f"kv_transfer is a byte copy: src dtype {src_pool.dtype} "
                         f"!= dst dtype {dst_pool.dtype}; cast the source first")
-    if src_pool.untyped_storage().data_ptr() == dst_pool.untyped_storage().data_ptr():
+    ss, ds = src_pool.untyped_storage(), dst_pool.untyped_storage()
+    shared = ss is ds if src_pool.is_meta else ss.data_ptr() == ds.data_ptr()  # meta: no addresses
+    if shared:
         raise ValueError("kv_transfer: src and dst share storage")
     if src_pages.shape != dst_pages.shape or src_pages.dim() != 1:
         raise ValueError("src_pages / dst_pages must be equal-length 1-D tables")
@@ -104,6 +107,8 @@ def _transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
     # is told apart without building device objects
     if all(t.is_cuda for t in tensors) and len({t.get_device() for t in tensors}) == 1:
         dev, host = None, (False, False)
+    elif all(t.is_meta for t in tensors):
+        dev, host = torch.device("meta"), (False, False)
     else:
         devs = {t.device for t in tensors}
         if devs == {torch.device("cpu")}:
@@ -127,6 +132,13 @@ def _transfer(src_pool: torch.Tensor, dst_pool: torch.Tensor,
         raise ValueError("kv_transfer: src must be contiguous")
     if src_pages.dtype != torch.int32 or dst_pages.dtype != torch.int32:
         raise TypeError("kv_transfer: page tables must be int32")
+    if dev is not None and dev.type == "meta":   # the dry-run: count the copy, move nothing
+        from repro_torch.obs.counting import report
+
+        n = src_pages.numel()
+        row_bytes = (src_pool.shape[-1] if row is None else row) * src_pool.element_size()
+        report(what, 0, 2 * n * row_bytes + 2 * n * 4)
+        return None
     if not _launch(src_pool, dst_pool, src_pages, dst_pages, what, dev=dev, host=host,
                    design=design, row=row):
         return None

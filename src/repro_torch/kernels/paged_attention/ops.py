@@ -6,6 +6,9 @@ a layer index. On CPU tensors it runs the plain version
 on GPU tensors it launches the CUDA kernel (``csrc/paged_attention.cu``),
 which reads the layer through the pool's strides — there is no fallback
 between the two. ``paged_decode_attention.launches`` counts kernel launches.
+On ``meta`` tensors (the dry-run) it launches nothing: it returns outputs of
+the right shapes and reports the launch's work to ``obs/counting``,
+every row priced at the table's full width (its lengths are data).
 The kernel has no backward, so the op refuses inputs that require grad, on
 every device.
 
@@ -59,10 +62,8 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
         out, m, l = paged_decode_attention_stats_ref(
             q, pool[:, layer], block_tables, lengths, block_size)
         return (out, m, l) if return_stats else out
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"paged_decode_attention: unsupported device {dev}")
-    from repro_torch.kernels import build, ticket_counters
-
     g = h // kv
     if q.dtype != pool.dtype or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q/pool dtypes {q.dtype}/{pool.dtype}: the kernel takes "
@@ -85,6 +86,17 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
     m = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
     l = torch.empty((b, kv, g), dtype=torch.float32, device=dev)
     w = block_tables.shape[1]
+    if dev.type == "meta":          # the dry-run: count the launch's work, compute nothing
+        from repro_torch.obs.counting import report
+
+        keys = w * block_size       # the lengths are data: price the table's width
+        esz = q.element_size()
+        report("paged_decode_attention", 4 * b * h * hd * keys,
+               2 * q.numel() * esz + b * keys * 2 * kv * hd * esz
+               + block_tables.numel() * 4 + b * 4 + 2 * m.numel() * 4)
+        return (out, m, l) if return_stats else out
+    from repro_torch.kernels import build, ticket_counters
+
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)

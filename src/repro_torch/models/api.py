@@ -14,8 +14,8 @@ config — the protocol the serving engine talks to::
     prefill_suffix(params, batch, prefix_k, prefix_v) -> (logits, cache)
 
 The state families (ssm, hybrid, encdec) have neither of the last two, as
-in the reference: their caches are not paged. ``input_specs`` (the
-dry-run's batch shapes) waits for ROADMAP item 12b.
+in the reference: their caches are not paged. ``input_specs`` gives the
+dry-run's batch shapes as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -105,3 +105,72 @@ def _encdec_model(cfg: ModelConfig) -> Model:
             cfg, batch, max_len, enc_len, **kw),
         cache_axes=encdec.cache_axes,
     )
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+ENC_MEMORY_LEN = 4096   # stub encoder length for enc-dec decode cells
+
+
+def input_specs(cfg: ModelConfig, shape_kind: str, seq: int, batch: int
+                ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Returns (specs, logical_axes) for one dry-run cell, with the
+    reference's tree structure, shapes, dtypes and axes.
+
+    ``specs`` mirrors the step function's batch argument; every leaf is a
+    tensor on the ``meta`` device (the reference's ``ShapeDtypeStruct``).
+    """
+    def S(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    act = cfg.dtype
+
+    if shape_kind == "train":
+        if cfg.family == "encdec":
+            dec = max(seq // 8, 128)
+            specs = {"frames": S((batch, seq, cfg.d_model), act),
+                     "tokens": S((batch, dec), i32),
+                     "labels": S((batch, dec), i32)}
+            axes = {"frames": ("batch", "seq", "embed"),
+                    "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        elif cfg.frontend != "none":
+            f = cfg.frontend_tokens
+            specs = {"tokens": S((batch, seq - f), i32),
+                     "labels": S((batch, seq), i32),
+                     "frontend_embeds": S((batch, f, cfg.d_model), act)}
+            axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+                    "frontend_embeds": ("batch", "seq", "embed")}
+        else:
+            specs = {"tokens": S((batch, seq), i32), "labels": S((batch, seq), i32)}
+            axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        return specs, axes
+
+    if shape_kind == "prefill":
+        if cfg.family == "encdec":
+            specs = {"frames": S((batch, seq, cfg.d_model), act),
+                     "tokens": S((batch, 1), i32)}
+            axes = {"frames": ("batch", "seq", "embed"), "tokens": ("batch", "seq")}
+        elif cfg.frontend != "none":
+            f = cfg.frontend_tokens
+            specs = {"tokens": S((batch, seq - f), i32),
+                     "frontend_embeds": S((batch, f, cfg.d_model), act)}
+            axes = {"tokens": ("batch", "seq"),
+                    "frontend_embeds": ("batch", "seq", "embed")}
+        else:
+            specs = {"tokens": S((batch, seq), i32)}
+            axes = {"tokens": ("batch", "seq")}
+        return specs, axes
+
+    if shape_kind == "decode":
+        model = get_model(cfg)
+        if cfg.family == "encdec":
+            cache = model.init_cache(batch, seq, enc_len=ENC_MEMORY_LEN, device="meta")
+        else:
+            cache = model.init_cache(batch, seq, device="meta")
+        specs = {"token": S((batch,), i32), "cache": cache}
+        axes = {"token": ("batch",), "cache": model.cache_axes()}
+        return specs, axes
+
+    raise ValueError(f"unknown shape kind {shape_kind!r}")

@@ -7,7 +7,9 @@ never materialize (causal serving prefill above the threshold runs the K4
 kernel, ``kernels/flash_prefill``, instead; K4 has no backward): queries
 are processed in chunks with an fp32 online-softmax accumulator over
 key/value chunks. The reference's ``jax.lax.scan`` loops are Python loops
-here, and autograd differentiates them.
+here, and autograd differentiates them. On ``meta`` (the dry-run) without
+gradients, the chunk loops run one pass counted for all
+(``obs/counting.trips``).
 
 * ``window > 0``  — local attention over a static key span per query chunk;
 * ``wedge=True``  — each query chunk contracts only its causal prefix
@@ -21,6 +23,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.obs.counting import trips
 
 Tensor = torch.Tensor
 NEG_INF = torch.finfo(torch.float32).min
@@ -102,11 +106,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     qpos_base = torch.arange(q_chunk, device=dev)
     kpos_base = torch.arange(kv_chunk, device=dev)
     outs = []
-    for qi in range(nq):
+    q_loop = trips(nq, q)             # every chunk has one shape (padded)
+    for qi in q_loop:
         qc = _split_heads(q[:, qi * q_chunk:(qi + 1) * q_chunk], kvh)
         qpos = q_offset + qi * q_chunk + qpos_base
         m, l, acc = _init_state(b, kvh, g, q_chunk, hd, dev)
-        for ki in range(nk):
+        for ki in trips(nk, q):
             kpos = ki * kv_chunk + kpos_base
             mask = (kpos[None, :] < t).expand(q_chunk, kv_chunk)    # padding
             if causal:
@@ -117,7 +122,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
             vc = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
             m, l, acc = _chunk_attend(qc, kc, vc, mask[None, None, None], m, l, acc)
         outs.append(_finalize(l, acc, q.dtype))
-    return torch.cat(outs, dim=1)[:, :s]
+    return torch.cat(outs * q_loop.reps, dim=1)[:, :s]
 
 
 def _wedge_flash(q, k, v, *, causal: bool, q_chunk: int, q_offset: int):

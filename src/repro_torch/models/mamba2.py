@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.obs.counting import trips
 from repro_torch.models.common import (ModelConfig, dense_init, embed, make_generator,
                                        maybe_remat, rms_norm, softmax_cross_entropy,
                                        unbind_layers, unembed)
@@ -141,7 +142,8 @@ def _ssd_chunked(log_a: Tensor, Bm: Tensor, Cm: Tensor, xdt: Tensor,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=log_a.device))
     h = h0.float()
     ys = []
-    for c in range(nc):
+    loop = trips(nc, xdt)             # every chunk has one shape (padded)
+    for c in loop:
         sl = slice(c * chunk, (c + 1) * chunk)
         la, Bq, Cq, xq = log_a[:, sl].float(), Bm[:, sl], Cm[:, sl], xdt[:, sl].float()
         cum = torch.cumsum(la, dim=1)                            # (B,Q,H)
@@ -161,7 +163,7 @@ def _ssd_chunked(log_a: Tensor, Bm: Tensor, Cm: Tensor, xdt: Tensor,
         w = torch.exp(total[:, None, :] - cum)                   # (B,Q,H)
         xw = (xq * w[..., None]).permute(0, 2, 3, 1)             # (B,H,P,S)
         h = h * torch.exp(total)[:, :, None, None] + torch.matmul(xw, Bq.float()[:, None])
-    y = torch.cat(ys, dim=1)[:, :s]
+    y = torch.cat(ys * loop.reps, dim=1)[:, :s]
     return y.to(xdt.dtype), h
 
 

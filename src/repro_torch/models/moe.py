@@ -191,8 +191,14 @@ def moe_ffn_topk_sparse(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig
     x2 = x.reshape(-1, d)
     flat_idx = idx.reshape(-1)
     out = torch.zeros_like(x2)
-    for ex in torch.unique(flat_idx).tolist():
-        rows = torch.nonzero(flat_idx == ex).squeeze(1)
+    if x.is_meta:
+        # The dry-run has no routing to group by: whatever the routing, the
+        # B*S tokens run through one expert each, so price them as one group.
+        groups = [(0, torch.arange(x2.shape[0], device=x.device))]
+    else:
+        groups = [(ex, torch.nonzero(flat_idx == ex).squeeze(1))
+                  for ex in torch.unique(flat_idx).tolist()]
+    for ex, rows in groups:
         xs = x2.index_select(0, rows)
         gate = _act(xs @ p["w_gate"][ex], cfg.activation)
         out.index_copy_(0, rows, (gate * (xs @ p["w_up"][ex])) @ p["w_down"][ex])

@@ -15,9 +15,10 @@ coefficients exactly on synthetic data and usefully on real data. The fits
 and :data:`TTFT_ERROR_BOUND` are the reference's, line for line.
 
 FLOP counts are the reference's analytic model (``2 * active_params`` per
-token plus the quadratic attention term). The reference can refine it from
-a compiled HLO; the port has no HLO, so :func:`prefill_flops` takes no
-``hlo_text``.
+token plus the quadratic attention term). The reference's sweep refines it
+with the compiled prefill's HLO; the port has no HLO, so its sweep passes
+:func:`prefill_flops` the op count of the same prefill traced on ``meta``
+(``launch/op_counts.py``) instead.
 
 The sweep times the port's own prefill (``models/transformer.py::prefill``)
 on the device named: on the GPU (the default) it calibrates that card,
@@ -118,14 +119,24 @@ def fit_hardware(samples: Sequence[Tuple[float, float]],
 
 
 # -- FLOP seeds -----------------------------------------------------------------
-def prefill_flops(cfg, num_tokens: int) -> float:
-    """Analytic prefill FLOPs for ``num_tokens``: the linear weight term
-    (2 * active_params per token) PLUS the quadratic attention term (QK^T
-    and AV are each 2*n^2*heads*head_dim per layer), as the reference counts
-    them (the causal mask's halving is not taken off)."""
+def prefill_flops(cfg, num_tokens: int, counts=None) -> float:
+    """Prefill FLOPs for ``num_tokens``.
+
+    Analytic model: the linear weight term (2 * active_params per token)
+    PLUS the quadratic attention term (QK^T and AV are each
+    2*n^2*heads*head_dim per layer), as the reference counts them (the
+    causal mask's halving is not taken off). Where ``counts`` (an
+    ``launch/op_counts.OpCounts`` of the prefill) is given, the larger of
+    the two wins, as the reference refines its floor with the compiled
+    HLO's count (``hlo_text``): the op count is exact where it sees the
+    work, the analytic count a floor it only refines upward.
+    """
     n_attn = cfg.num_attention_layers() or cfg.num_layers
-    return 2.0 * cfg.active_params() * num_tokens + \
+    analytic = 2.0 * cfg.active_params() * num_tokens + \
         4.0 * n_attn * cfg.num_heads * cfg.head_dim * num_tokens ** 2
+    if counts is not None:
+        return max(analytic, float(counts.flops))
+    return analytic
 
 
 # -- the sweep ----------------------------------------------------------------
@@ -139,15 +150,20 @@ def measure_prefill(cfg, prompt_lens: Sequence[int] = CPU_PROMPT_LENS,
     and is then timed ``repeats`` times, keeping the MINIMUM wall — the
     estimator least contaminated by host noise. On a CUDA device the device
     is synchronized before and after each call, so a wall holds the whole
-    prefill. Returns ``[(flops, best_seconds)]`` in ``prompt_lens`` order.
+    prefill. Each length's FLOPs are :func:`prefill_flops` refined by the
+    op count of the same prefill on ``meta``, as the reference refines them
+    by the compiled prefill's HLO. Returns ``[(flops, best_seconds)]`` in
+    ``prompt_lens`` order.
     """
     import torch
 
     from repro_torch import resolve_device
+    from repro_torch.launch.op_counts import count
     from repro_torch.models import transformer as T
 
     dev = resolve_device(device)
     params = T.init_params(cfg, 0, dev)
+    shapes = T.init_params(cfg, 0, "meta")
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def timed(tokens) -> float:
@@ -161,9 +177,10 @@ def measure_prefill(cfg, prompt_lens: Sequence[int] = CPU_PROMPT_LENS,
     with torch.inference_mode():
         for n in prompt_lens:
             tokens = torch.zeros((1, n), dtype=torch.int32, device=dev)
+            _, counts = count(T.prefill, shapes, cfg, tokens.to("meta"))
             timed(tokens)                                 # warm-up
             best = min(timed(tokens) for _ in range(repeats))
-            samples.append((prefill_flops(cfg, n), best))
+            samples.append((prefill_flops(cfg, n, counts), best))
     return samples
 
 

@@ -25,7 +25,9 @@ def test_import_every_module_without_jax():
         "        'repro_torch.distributed.tp', 'repro_torch.models.mamba2',\n"
         "        'repro_torch.models.griffin', 'repro_torch.models.encdec',\n"
         "        'repro_torch.training.optimizer', 'repro_torch.distributed.steps',\n"
-        "        'repro_torch.launch.train'}\n"
+        "        'repro_torch.launch.train', 'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.launch.op_counts',\n"
+        "        'repro_torch.launch.analysis'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -164,3 +166,15 @@ def test_out_of_scope_features_name_their_roadmap_item():
         back = load_train_state(ST.abstract_train_state(model),
                                 save_train_state(tr_state, 1, d), device="cpu")
         assert int(back["step"]) == 1
+    # item 12b is ported: the dry-run accounting (cells, input specs, the
+    # production meshes, op counts on meta, the H100 roofline)
+    from repro_torch.configs import ASSIGNED_ARCHS, list_cells
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.api import input_specs
+
+    assert len(list_cells()) == 4 * len(ASSIGNED_ARCHS) == 40
+    assert make_production_mesh(multi_pod=True).shape == {"pod": 2, "data": 16, "model": 16}
+    specs, _ = input_specs(get_config("qwen3-1.7b"), "prefill", 32768, 32)
+    assert specs["tokens"].device.type == "meta"
+    assert D.predict("qwen3-1.7b", "decode_32k", 1)["flops"] > 0

@@ -196,12 +196,28 @@ def test_kv_scatter_refuses_duplicates_and_bad_staging():
         kv_scatter(pool, ids.to("meta"), torch.ones(2, 2, 2, 4))
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor on a device no kernel takes; any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a device the kernels do not take")
+
+
 def test_new_wrappers_refuse_other_devices():
-    """A device the kernels do not take raises; it never runs the plain version."""
-    q = torch.zeros(1, 8, 4, 16, device="meta")
-    k = torch.zeros(1, 8, 2, 16, device="meta")
+    """A device the kernels do not take raises; it never runs the plain version.
+    K4 takes ``meta`` (the dry-run counts it there, launch/op_counts.py);
+    K5a and K5b do not."""
+    q, k = _OtherDevice((1, 8, 4, 16)), _OtherDevice((1, 8, 2, 16))
     with pytest.raises(ValueError, match="unsupported device"):
         flash_prefill_op(q, k, k)
+    q = torch.zeros(1, 8, 4, 16, device="meta")
+    k = torch.zeros(1, 8, 2, 16, device="meta")
+    assert flash_prefill_op(q, k, k).device.type == "meta"
     pool = torch.zeros(8, 2, 2, 4, device="meta")
     ids = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -220,7 +236,7 @@ def _require_sm90():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (256, 1, 8), (16, 2, 4)])
+@pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (160, 8, 32), (256, 1, 8), (16, 2, 4)])
 def test_cuda_flash_prefill_matches_plain(dtype, hd, KV, H):
     """Cold (S = T = 300) and suffix (S = 100 at q_offset 200) mode; the
     bf16 kernel against the plain version on the same values upcast to fp32
@@ -248,7 +264,7 @@ def test_cuda_flash_prefill_matches_plain(dtype, hd, KV, H):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (256, 1, 8), (16, 2, 4)])
+@pytest.mark.parametrize("hd,KV,H", [(128, 8, 16), (160, 8, 32), (256, 1, 8), (16, 2, 4)])
 def test_cuda_flash_prefill_suffix_rows_bit_identical(hd, KV, H, dtype):
     """Row q_offset + i of a suffix call equals that row of the cold call,
     bit for bit in each dtype, for offsets on and off the tile grid (the
@@ -266,8 +282,8 @@ def test_cuda_flash_prefill_suffix_rows_bit_identical(hd, KV, H, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 256) for g in (1, 2, 8)]
-                         + [(128, 3), (64, 64)])
+@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 160, 256) for g in (1, 2, 8)]
+                         + [(128, 3), (64, 64), (160, 64)])
 def test_cuda_flash_prefill_bf16_ragged(hd, G):
     """The bf16 tensor-core kernel at every head dim and group size (G = 3
     leaves pairs of a block unused; G = 64 is the largest the wrapper
@@ -294,11 +310,11 @@ def test_cuda_flash_prefill_bf16_ragged(hd, G):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 256) for g in (1, 2, 8, 16)]
-                         + [(64, 3), (256, 64)])
+@pytest.mark.parametrize("hd,G", [(hd, g) for hd in (16, 32, 64, 128, 160, 256) for g in (1, 2, 8, 16)]
+                         + [(64, 3), (256, 64), (160, 64)])
 def test_cuda_flash_prefill_fp32_ragged(hd, G):
     """The fp32 FMA kernel at every head dim and group size (G = 3 leaves
-    pairs of a block unused; G = 64 at hd 256 takes 8-warp blocks), cold
+    pairs of a block unused; G = 64 at hd 160 and 256 takes 8-warp blocks), cold
     over 1100 keys (three key splits, ragged tiles), non-causal, and in
     suffix mode at offsets on, beside and between the split boundaries:
     within 2e-5 of the plain version, suffix rows bit-identical to the
@@ -367,7 +383,7 @@ def test_cuda_flash_prefill_fp32_repeated_calls():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 160, 256])
 def test_cuda_flash_prefill_scale_is_a_division(hd):
     """Both kernels scale scores by a reciprocal and one FMA correction;
     it must equal a rounded division by the fp32 sqrt(hd) on every fp32
