@@ -89,7 +89,37 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  calls that make the same move, with the design K1 takes
                  each way; its host-route launch count goes into the
                  ``kernels`` line as ``kv_transfer_host``.
-8. ``e2e_moe_tp`` — granite-moe-1b-a400m (32 experts, top-8, dense
+8. ``e2e_fleet`` — the Load-Aware Scheduler through FlowKVClient on
+                 full-width, full-depth qwen3-1.7b in float32, every pool
+                 sized to hold the whole burst (a handoff into a full pool
+                 raises in both packages). Imbalance: 1P+3D with
+                 ``role_flip``, the nodes declared H100 / H20 / H100 / A100,
+                 16 prompts of 1100-2000 tokens (8 at cycle 0, one a cycle
+                 after), 8 new tokens each: a decode node flips to prefill,
+                 the first the idle decode node ``_capabilities()`` rates
+                 most compute-rich; a flipped node runs prefills launching
+                 K4 and K5b; every remote handoff launches 1 K1; within 40
+                 idle cycles every node is back in its home role. Then every
+                 node flipped to prefill by the client: 2 prompts hand off
+                 on their own node with no K1. Overload: 1P+1D, an
+                 AdmissionPolicy (queue depth 2, 3 defer cycles, retry-after
+                 floor 2 s) under 12 such prompts: some rejected (REJECTED,
+                 retry_after >= 2 s, a reason, an empty stream, cancel
+                 False), none of the rest, stats counting them; after each
+                 back-off the rejected prompts are resubmitted until served;
+                 a 200-cycle defer policy under 3 prompts defers one and
+                 rejects none; each admitted request's predicted TTFT (the
+                 data-sheet H100 profile) printed beside its TTFT wall.
+                 Preemption: 1P+1D on the smallest pool that admits two
+                 1000-token prompts (64 blocks), 64 new tokens each: a
+                 request SWAPPED, its K/V gathered by K5a and copied to the
+                 host, restored by K5b, no retry; then a third request
+                 cancelled while SWAPPED drops its spill. Every token equals
+                 monolithic greedy_generate, no block leaks, no spill left.
+                 Each run prints its serve wall and cycles, TTFT and decode
+                 step walls, handoffs, the controller's events, launches and
+                 the device's busy share.
+9. ``e2e_moe_tp`` — granite-moe-1b-a400m (32 experts, top-8, dense
                  dispatch) at full width and depth, 1 prefill + 1 decode
                  node of 192 blocks, prompts of 200-1500 tokens, 8 new
                  tokens each, random weights from seed 0 with the
@@ -116,7 +146,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  forced) for its transfer walls. The fp32 2 -> 4 run's
                  fine-row K1 launch count goes into the ``kernels`` line as
                  ``kv_transfer_fine``.
-9. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
+10. ``sim_calibrate`` — the simulator's H100 profile fitted from the port's
                  own prefill (``obs/calibrate.check`` on the card):
                  full-width, full-depth qwen3-1.7b at its bfloat16, 8 prompt
                  lengths from 256 to 4096 (the half above flash_threshold
@@ -136,7 +166,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  (cold and suffix), K5a and K5b launched. K4's shapes in
                  this phase (cold 4096 and 256, suffix 200 over 1256, bf16)
                  are held against its plain version in the kernels phase.
-10. ``e2e_state`` — the state families at full width and depth, one model
+11. ``e2e_state`` — the state families at full width and depth, one model
                  on the card at a time: mamba2-370m (prompts of 200-1500
                  tokens, 16 new) and recurrentgemma-2b (640, 1500 and 3000
                  tokens, the last across the 2048-slot ring's wrap; 8 new)
@@ -162,15 +192,16 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  and seamless's attention is tempered (STATE_TEMPERED).
                  The kernels phase holds K4 non-causal at seamless's heads
                  (S = T = 1500 and 4096, 16/16, hd 64) in both dtypes.
-11. ``train``  — the training path, one JSON line a sub-phase.
+12. ``train``  — the training path, one JSON line a sub-phase.
                  ``train_main``: full-width, full-depth qwen3-1.7b in
                  bfloat16 over fp32 masters, B=2, S=1024, 8 steps of
                  launch/train.py's loop on the copy task (one batch from
                  seed 0, lr TRAIN_LR, warm-up 1): losses finite and falling,
                  step 8; the state saved at step 4 (build/train_ckpt/,
-                 deleted after), loaded into an abstract_train_state
-                 template on the card bit for bit, and steps 5-8 resumed
-                 from it within 1e-3 of the uninterrupted losses; the median
+                 deleted after) with a digest of each leaf, loaded once
+                 into an abstract_train_state template on the card, held
+                 to those digests bit for bit, and steps 5-8 resumed from
+                 it within 1e-3 of the uninterrupted losses; the median
                  step wall of steps 2-8, tokens/s, MFU, peak memory, and one
                  step's device time by part (GEMMs, attention,
                  cross-entropy, optimizer, rest) beside the FLOP and
@@ -187,7 +218,7 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  1e-3 of its max |g|, the updated master within 1e-6;
                  granite's, recurrentgemma's and seamless's attention
                  tempered. K4 and K3 launch no time in the whole phase.
-12. ``dryrun`` — the dry-run accounting (``launch/dryrun.py``). First
+13. ``dryrun`` — the dry-run accounting (``launch/dryrun.py``). First
                  three cells of full-width, full-depth qwen3-1.7b (bf16,
                  seed 0) cut only in batch run on the card, alone (their
                  steps are host-bound): prefill_32k at B=1, decode_32k at B=8 and
@@ -1677,6 +1708,481 @@ def phase_e2e_faults_tier(torch, env) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# e2e_fleet: the Load-Aware Scheduler on real engines (role flips, local
+# handoffs, overload admission, decode preemption)
+# ---------------------------------------------------------------------------
+FLEET_PROMPTS, FLEET_LENS = 16, (1100, 2000)   # a prefill-heavy burst, all above flash_threshold
+FLEET_NEW = 8
+FLEET_WAVE = 8                         # prompts at cycle 0; the rest arrive one a cycle
+FLEET_BATCH_TOKENS = 2048              # about one prompt a cycle a prefill node
+FLEET_IDLE = 40                        # idle cycles for the flips to revert
+FLEET_HW = ("h100", "h20", "h100", "a100")      # declared per node (sim/hardware.py)
+FLEET_HANDOFFS = 2                     # prompts served on the all-prefill fleet
+OVERLOAD_PROMPTS = 12
+OVERLOAD_POLICY = dict(max_queue_depth=2, max_defer_cycles=3, retry_after_floor_s=2.0)
+DEFER_PROMPTS = 3
+PREEMPT_LEN, PREEMPT_NEW = 1000, 64
+
+
+def preempt_blocks(bs: int) -> int:
+    """The smallest pool that admits two PREEMPT_LEN prompts at once: each
+    holds ceil((PREEMPT_LEN + 1) / bs) blocks after its prefill (32 at 32),
+    and decoding PREEMPT_NEW tokens grows each to
+    ceil((PREEMPT_LEN + PREEMPT_NEW) / bs) (34), so two cannot both finish."""
+    admit = -(-(PREEMPT_LEN + 1) // bs)
+    check(-(-(PREEMPT_LEN + PREEMPT_NEW) // bs) > admit, "e2e_fleet: the pool never fills")
+    return 2 * admit
+
+
+class FleetProbe:
+    """Counts and times the serving path of one FlowKVClient without
+    changing it: each engine's prefill and decode calls (K4 / K5b launches
+    and the node's role at the call), each P->D handoff (K1 launches,
+    local or remote) and each spill and restore (K5a / K5b launches, the
+    saved bytes, where they landed)."""
+
+    def __init__(self, torch, client):
+        from repro_torch.kernels import launch_counts
+
+        self.torch, self.counts, self.ctl = torch, launch_counts, client.controller
+        self.prefills, self.decode_walls, self.handoffs = [], [], []
+        self.spills, self.restores = [], []
+        cluster = client.cluster
+        for nid, eng in cluster.engines.items():
+            eng.run_prefill = self._prefill(nid, eng.run_prefill)
+            eng.run_decode = self._decode(eng.run_decode)
+            sched = eng.scheduler
+            sched.on_spill = self._spill(eng, sched.on_spill)
+            sched.on_resume = self._restore(eng, sched.on_resume)
+        cluster._transfer = self._handoff(cluster._transfer)
+
+    def _delta(self, fn, *keys):
+        before = self.counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(self.torch)
+        wall = time.perf_counter() - t0
+        after = self.counts()
+        return out, wall, {k: after[k] - before[k] for k in keys}
+
+    def _prefill(self, nid, run):
+        def wrapped(decision, now=None):
+            role = self.ctl.nodes[nid].role
+            out, wall, d = self._delta(lambda: run(decision, now=now), "flash_prefill",
+                                       "kv_scatter")
+            self.prefills.append(dict(cycle=self.ctl.cycle, node=nid, role=role,
+                                      home=self.ctl.nodes[nid].home_role, wall_s=wall,
+                                      tokens=decision.num_prefill_tokens, **d))
+            return out
+        return wrapped
+
+    def _decode(self, run):
+        def wrapped(decision):
+            out, wall, _ = self._delta(lambda: run(decision))
+            self.decode_walls.append(wall)
+            return out
+        return wrapped
+
+    def _handoff(self, transfer):
+        def wrapped(req):
+            src = req.prefill_node
+            _, wall, d = self._delta(lambda: transfer(req), "kv_transfer")
+            self.handoffs.append(dict(request=req.request_id, src=src, dst=req.decode_node,
+                                      local=src == req.decode_node, wall_s=wall,
+                                      k1=d["kv_transfer"],
+                                      dispatches=req.transfer_dispatches))
+            return None
+        return wrapped
+
+    def _spill(self, eng, hook):
+        def wrapped(req):
+            _, wall, d = self._delta(lambda: hook(req), "kv_gather")
+            k, v, length = eng.spilled[req.request_id]
+            self.spills.append(dict(request=req.request_id, cycle=self.ctl.cycle,
+                                    tokens=length, wall_s=wall, k5a=d["kv_gather"],
+                                    bytes=k.numel() * k.element_size() * 2,
+                                    on=str(k.device)))
+        return wrapped
+
+    def _restore(self, eng, hook):
+        def wrapped(req):
+            had = req.request_id in eng.spilled
+            _, wall, d = self._delta(lambda: hook(req), "kv_scatter")
+            self.restores.append(dict(request=req.request_id, cycle=self.ctl.cycle,
+                                      spilled=had, wall_s=wall, k5b=d["kv_scatter"]))
+        return wrapped
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def _fleet_summary(client, probe, handles, wall, busy) -> dict:
+    reqs = [h.request for h in handles]
+    ttft = [r.first_token_wall - r.arrival_wall for r in reqs if r.first_token_wall]
+    dec = [w * 1e3 for w in probe.decode_walls]
+    local = [h for h in probe.handoffs if h["local"]]
+    return dict(
+        serve_wall_s=wall, cycles=client.controller.cycle, requests=len(reqs),
+        ttft_wall_p50_s=_pct(ttft, 50), ttft_wall_p95_s=_pct(ttft, 95),
+        decode_step_wall_p50_ms=_pct(dec, 50), decode_step_wall_p95_ms=_pct(dec, 95),
+        decode_steps=len(dec), local_handoffs=len(local),
+        remote_handoffs=len(probe.handoffs) - len(local),
+        events=[(e.cycle, e.kind, e.detail) for e in client.controller.events],
+        device_busy_share=busy)
+
+
+def _device_busy(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler recording the device only: its wall and
+    the device's busy seconds (kernels and copies) in that wall. It sums
+    the raw trace records: building key_averages() over a serve's ~10^5
+    kernels takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+    return wall, busy
+
+
+def _fleet_serve(torch, client, drive):
+    """``drive()`` profiled (``_device_busy``): its wall, the device's busy
+    share over it, and its launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sync(torch)
+    reset_launch_counts()
+    wall, busy = _device_busy(torch, drive)
+    return wall, busy / wall if wall else None, launch_counts()
+
+
+def _fleet_check_handoffs(tag, probe):
+    for h in probe.handoffs:
+        want = 0 if h["local"] else h["dispatches"]
+        check(h["k1"] == want and (h["local"] or h["dispatches"] == 1),
+              f"{tag}: handoff {h} launched {h['k1']} K1 for {h['dispatches']} dispatches")
+
+
+def _fleet_no_leaks(tag, client, blocks):
+    for nid, eng in client.cluster.engines.items():
+        eng.scheduler.bm.check_invariants()
+        check(eng.scheduler.bm.free_capacity == blocks,
+              f"{tag}: node {nid} has {eng.scheduler.bm.free_capacity} of {blocks} blocks free")
+        check(not eng.spilled, f"{tag}: node {nid} keeps spills {list(eng.spilled)}")
+    check(client.cluster.audit_blocks() == 0, f"{tag}: leaked blocks")
+
+
+def _fleet_tokens(tag, handles, mono, new):
+    for h in handles:
+        r = h.request
+        check(list(map(int, r.output_tokens)) == mono(r.prompt_tokens, new),
+              f"{tag}: request {r.request_id} differs from monolithic greedy_generate")
+
+
+def _fleet_imbalance(torch, cfg, params, prompts, mono, blocks) -> dict:
+    """Run a: 1P+3D with the flip policy under a prefill-heavy burst, the
+    idle cycles that revert it, then every node flipped to prefill by the
+    client for FLEET_HANDOFFS prompts handed off on their own node."""
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+    from repro_torch.sim.hardware import get_hardware
+
+    tag = "e2e_fleet imbalance"
+    hw = {i: get_hardware(n) for i, n in enumerate(FLEET_HW)}
+    client = FlowKVClient(cfg, params, num_prefill=1, num_decode=3, num_blocks=blocks,
+                          max_batch_tokens=FLEET_BATCH_TOKENS, role_flip=True, hardware=hw,
+                          device=DEVICE)
+    probe = FleetProbe(torch, client)
+    ctl = client.controller
+    home = {nid: n.role for nid, n in ctl.nodes.items()}
+    caps = ctl._capabilities()
+    sp = SamplingParams(max_new_tokens=FLEET_NEW)
+    burst = prompts[:FLEET_PROMPTS]
+    handles = []
+
+    def drive():
+        handles.extend(client.submit(p, sp) for p in burst[:FLEET_WAVE])
+        for p in burst[FLEET_WAVE:]:
+            client.step()
+            handles.append(client.submit(p, sp))
+        client.drain(max_cycles=400)
+
+    wall, busy, counts = _fleet_serve(torch, client, drive)
+    check(all(h.request.state.value == "finished" for h in handles), f"{tag}: unfinished")
+    flips = [e for e in ctl.events if e.kind == "set_role"]
+    to_prefill = [e for e in flips if e.detail.endswith("decode -> prefill")]
+    check(bool(to_prefill), f"{tag}: no set_role moved a decode node to prefill")
+    first = int(to_prefill[0].detail.split(":")[0].split()[1])
+    richest = max((nid for nid, r in home.items() if r == "decode"), key=lambda n: caps[n][0])
+    check(first == richest, f"{tag}: the first flip took node {first}, not node {richest}, "
+          f"the most compute-rich decode node by _capabilities() {caps}")
+    borrowed = [p for p in probe.prefills if home[p["node"]] == "decode"
+                and p["role"] == "prefill"]
+    check(any(p["flash_prefill"] > 0 and p["kv_scatter"] > 0 for p in borrowed),
+          f"{tag}: no flipped node ran a prefill with K4 and K5b: {borrowed}")
+    idle = 0
+    while idle < FLEET_IDLE and any(n.role != home[nid] for nid, n in ctl.nodes.items()):
+        client.step()
+        idle += 1
+    # home_role may stay equal to the home role: a node the reverse
+    # (decode-hot) imbalance sent home keeps it set (ROADMAP queue 3)
+    roles = {nid: (n.role, n.home_role, n.alive) for nid, n in ctl.nodes.items()}
+    check(all(r == home[nid] and a and hr in (None, r) for nid, (r, hr, a) in roles.items()),
+          f"{tag}: after {idle} idle cycles the roles are {roles}, home {home}")
+    _fleet_tokens(tag, handles, mono, FLEET_NEW)
+    _fleet_check_handoffs(tag, probe)
+    _fleet_no_leaks(tag, client, blocks)
+    data = dict(nodes="1P+3D", hardware=dict(enumerate(FLEET_HW)),
+                capabilities={n: list(c) for n, c in caps.items()}, launches=counts,
+                first_flip=first, idle_cycles_to_revert=idle, roles_after=roles,
+                prefills_on_flipped=[{k: p[k] for k in ("cycle", "node", "tokens",
+                                                        "flash_prefill", "kv_scatter")}
+                                     for p in borrowed],
+                **_fleet_summary(client, probe, handles, wall, busy))
+
+    # every node prefill: routing falls back to hybrid nodes and hands the
+    # cache off on the node that prefilled it (no K1)
+    for nid, r in home.items():
+        if r == "decode":
+            client.set_role(nid, "prefill")
+    probe.handoffs.clear()
+    more = prompts[FLEET_PROMPTS:FLEET_PROMPTS + FLEET_HANDOFFS]
+    local = []
+
+    def drive_local():
+        local.extend(client.submit(p, sp) for p in more)
+        client.drain(max_cycles=100)
+
+    lwall, lbusy, lcounts = _fleet_serve(torch, client, drive_local)
+    for nid, r in home.items():
+        client.set_role(nid, r)
+    check(len(probe.handoffs) == len(more) and all(h["local"] for h in probe.handoffs),
+          f"{tag}: the all-prefill fleet's handoffs {probe.handoffs}")
+    _fleet_check_handoffs(tag, probe)
+    _fleet_tokens(tag, local, mono, FLEET_NEW)
+    _fleet_no_leaks(tag, client, blocks)
+    k1 = sum(h["k1"] for h in probe.handoffs)
+    data["all_prefill"] = dict(serve_wall_s=lwall, device_busy_share=lbusy, launches=lcounts,
+                               handoffs=probe.handoffs, handoff_k1=k1,
+                               decode_nodes=[h.request.decode_node for h in local])
+    return data
+
+
+def _fleet_overload(torch, cfg, params, prompts, mono, blocks) -> dict:
+    """Run b: 1P+1D under the admission gate. A burst of OVERLOAD_PROMPTS
+    is partly rejected with a retry-after; after the back-off the rejected
+    prompts are resubmitted (and again after each reject) until served.
+    Then a gate that defers for up to 200 cycles serves DEFER_PROMPTS
+    without a reject."""
+    import math
+
+    from repro_torch.core.scheduler import AdmissionPolicy
+    from repro_torch.obs.tracing import attach_tracer
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+
+    tag = "e2e_fleet overload"
+    sp = SamplingParams(max_new_tokens=FLEET_NEW)
+    out = {}
+    for run, n, policy in (("reject", OVERLOAD_PROMPTS, AdmissionPolicy(**OVERLOAD_POLICY)),
+                           ("defer", DEFER_PROMPTS,
+                            AdmissionPolicy(max_queue_depth=2, max_defer_cycles=200))):
+        client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1,
+                              num_blocks=blocks, max_batch_tokens=FLEET_BATCH_TOKENS,
+                              admission=policy, device=DEVICE)
+        rec = attach_tracer(client.cluster)
+        probe = FleetProbe(torch, client)
+        handles, retried, backoffs, pending = [], [], [], []
+
+        def drive():
+            handles.extend(client.submit(p, sp) for p in prompts[:n])
+            client.drain(max_cycles=500)
+            pending[:] = [h for h in handles if h.rejected]
+            for _ in range(n):                 # the client's back-off loop
+                if not pending:
+                    break
+                wait = max(math.ceil(h.retry_after) for h in pending)
+                backoffs.append(wait)
+                for _ in range(wait):
+                    client.step()
+                again = [client.submit(h.request.prompt_tokens, sp) for h in pending]
+                retried.extend(again)
+                client.drain(max_cycles=500)
+                pending[:] = [h for h in again if h.rejected]
+
+        wall, busy, counts = _fleet_serve(torch, client, drive)
+        rejected = [h for h in handles if h.rejected]
+        served = [h for h in handles + retried if not h.rejected]
+        st = client.stats()
+        check(all(h.request.state.value == "finished" for h in served), f"{tag}: unfinished")
+        check(st["deferred"] == 0, f"{tag} {run}: {st['deferred']} still deferred")
+        n_rejected = sum(1 for h in handles + retried if h.rejected)
+        check(st["rejected"] == n_rejected,
+              f"{tag} {run}: stats rejected {st['rejected']} != {n_rejected}")
+        deferred = [e for e in client.controller.events if e.kind == "admission"
+                    and e.detail.startswith("deferred")]
+        if run == "reject":
+            check(0 < len(rejected) < len(handles),
+                  f"{tag}: {len(rejected)} of {len(handles)} rejected")
+            for h in rejected:
+                check(h.done and h.retry_after is not None and h.retry_after >= 2.0
+                      and bool(h.stats()["reject_reason"]) and list(h.tokens()) == []
+                      and not h.cancel(), f"{tag}: rejected handle {h.stats()}")
+            check(not pending and {tuple(h.request.prompt_tokens) for h in retried
+                                   if not h.rejected}
+                  == {tuple(h.request.prompt_tokens) for h in rejected},
+                  f"{tag}: the resubmissions were not all served")
+        else:
+            check(bool(deferred) and n_rejected == 0,
+                  f"{tag} defer: {len(deferred)} deferrals, {n_rejected} rejects")
+        _fleet_tokens(f"{tag} {run}", served, mono, FLEET_NEW)
+        _fleet_check_handoffs(f"{tag} {run}", probe)
+        _fleet_no_leaks(f"{tag} {run}", client, blocks)
+        # the gate's TTFT price (the data-sheet H100 profile) beside the wall
+        admitted = {}
+        for s in rec.spans:
+            if s.name == "admission" and s.attrs.get("verdict") == "admitted":
+                admitted[s.trace_id] = s.attrs["predicted_ttft_s"]
+        ttft = [dict(request=h.request_id, prompt_len=h.request.prompt_len,
+                     predicted_s=admitted.get(h.request_id),
+                     wall_s=h.request.first_token_wall - h.request.arrival_wall)
+                for h in served]
+        ratios = [t["wall_s"] / t["predicted_s"] for t in ttft if t["predicted_s"]]
+        out[run] = dict(prompts=n, policy=dict(dataclasses.asdict(policy)),
+                        rejected=len(rejected), rejected_total=n_rejected,
+                        deferred=len(deferred), resubmitted=len(retried),
+                        backoff_cycles=backoffs, launches=counts,
+                        retry_after_s=[h.retry_after for h in rejected],
+                        reject_reasons=sorted({h.request.reject_reason for h in rejected}),
+                        ttft_predicted_vs_wall=ttft,
+                        ttft_wall_over_predicted=[min(ratios), max(ratios)] if ratios else None,
+                        **_fleet_summary(client, probe, handles + retried, wall, busy))
+        del client, probe, handles, retried, pending, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fleet_preempt(torch, cfg, params, mono) -> dict:
+    """Run c: 1P+1D on the smallest pool that admits two PREEMPT_LEN prompts
+    (``preempt_blocks``): decoding PREEMPT_NEW tokens each swaps one out
+    (its K/V gathered by K5a and copied to the host) and back in (K5b).
+    Then two more prompts, and the one swapped out is cancelled while
+    SWAPPED."""
+    import numpy as np
+
+    from repro_torch.serving.api import FlowKVClient
+    from repro_torch.serving.request import SamplingParams
+
+    tag = "e2e_fleet preempt"
+    blocks = preempt_blocks(cfg.block_size)
+    rng = np.random.RandomState(SEED + 23)
+    prompts = [rng.randint(0, cfg.vocab_size, size=PREEMPT_LEN).tolist() for _ in range(4)]
+    sp = SamplingParams(max_new_tokens=PREEMPT_NEW)
+    client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1, num_blocks=blocks,
+                          max_batch_tokens=FLEET_BATCH_TOKENS, device=DEVICE)
+    probe = FleetProbe(torch, client)
+    handles, swapped_cycles = [], []
+
+    def drive():
+        handles.extend(client.submit(p, sp) for p in prompts[:2])
+        for _ in range(400):
+            client.step()
+            swapped_cycles.append(sum(h.state.value == "swapped" for h in handles))
+            if all(h.done for h in handles):
+                break
+
+    wall, busy, counts = _fleet_serve(torch, client, drive)
+    check(sum(swapped_cycles) > 0, f"{tag}: no request was ever SWAPPED on {blocks} blocks")
+    check(bool(probe.spills) and all(s["k5a"] >= 1 and s["on"] == "cpu" for s in probe.spills),
+          f"{tag}: spills {probe.spills}")
+    restored = [r for r in probe.restores if r["spilled"]]
+    check(len(restored) == len(probe.spills) and all(r["k5b"] >= 1 for r in restored),
+          f"{tag}: restores {probe.restores} for spills {probe.spills}")
+    check(all(h.request.retries == 0 for h in handles), f"{tag}: retries")
+    _fleet_tokens(tag, handles, mono, PREEMPT_NEW)
+    _fleet_no_leaks(tag, client, blocks)
+    data = dict(pool_blocks=blocks, prompt_len=PREEMPT_LEN, new_tokens=PREEMPT_NEW,
+                swapped_cycles=sum(swapped_cycles), spills=list(probe.spills),
+                restores=restored, launches=counts,
+                **_fleet_summary(client, probe, handles, wall, busy))
+
+    # cancel while SWAPPED: the spill is dropped, nothing leaks
+    more = [client.submit(p, sp) for p in prompts[2:]]
+    target = None
+    for _ in range(400):
+        client.step()
+        target = next((h for h in more if h.state.value == "swapped"), None)
+        if target is not None or all(h.done for h in more):
+            break
+    check(target is not None, f"{tag}: the third request was never SWAPPED")
+    dnode = client.cluster.engines[target.request.decode_node]
+    check(target.request_id in dnode.spilled, f"{tag}: the swapped request has no spill")
+    check(target.cancel() and target.request_id not in dnode.spilled,
+          f"{tag}: cancel kept the spill")
+    client.drain(max_cycles=400)
+    _fleet_tokens(tag, [h for h in more if h is not target], mono, PREEMPT_NEW)
+    _fleet_no_leaks(tag + " cancel", client, blocks)
+    data["cancel_while_swapped"] = dict(request=target.request_id,
+                                        cancelled_at_cycle=client.controller.cycle,
+                                        state=target.state.value)
+    return data
+
+
+def phase_e2e_fleet(torch, env) -> None:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_model
+
+    tag = "e2e_fleet"
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), dtype=torch.float32)
+    params = get_model(cfg).init(SEED, DEVICE)
+    rng = np.random.RandomState(SEED + 13)
+    # lengths first, so they do not depend on the vocabulary (the CPU
+    # emulation, tools/fleet_emulate.py, serves the same lengths)
+    lens = rng.randint(FLEET_LENS[0], FLEET_LENS[1] + 1, size=FLEET_PROMPTS + FLEET_HANDOFFS)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    # a P->D handoff into a pool without room raises (ROADMAP queue 3), and
+    # the router may send the whole burst to one decode node: every node
+    # holds every burst prompt's blocks to its last token
+    blocks = sum(-(-(len(p) + FLEET_NEW) // cfg.block_size) for p in prompts)
+    greedy, mono_s = {}, [0.0]
+
+    def mono(prompt, new):
+        key = (tuple(prompt), new)
+        if key not in greedy:
+            t0 = time.perf_counter()
+            tok = torch.tensor([list(prompt)], dtype=torch.int32, device=DEVICE)
+            greedy[key] = [int(x) for x in T.greedy_generate(params, cfg, tok, new)[0].cpu()]
+            mono_s[0] += time.perf_counter() - t0
+        return greedy[key]
+
+    data = dict(model=cfg.name, dtype=str(cfg.dtype), layers=cfg.num_layers,
+                prompt_lens=[len(p) for p in prompts], new_tokens=FLEET_NEW,
+                max_batch_tokens=FLEET_BATCH_TOKENS, pool_blocks=blocks)
+    data["imbalance"] = _fleet_imbalance(torch, cfg, params, prompts, mono, blocks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data["overload"] = _fleet_overload(torch, cfg, params, prompts, mono, blocks)
+    data["preempt"] = _fleet_preempt(torch, cfg, params, mono)
+    data.update(card=env["smi"], monolithic_s=mono_s[0], phase_s=time.perf_counter() - t_phase)
+    emit(tag, **data)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # e2e_moe_tp: MoE and tensor/expert-parallel serving (granite-moe-1b-a400m)
 # ---------------------------------------------------------------------------
 MOE_ARCH = "granite-moe-1b-a400m"
@@ -2842,13 +3348,23 @@ TRAIN_PARTS = (
 GEMM_FRAGS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
 
 
-def _bits_equal(torch, a, b) -> bool:
-    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
-        return False
-    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-    if a.dtype in ints:
-        return torch.equal(a.view(ints[a.dtype]), b.view(ints[a.dtype]))
-    return torch.equal(a, b)
+def _leaf_digest(torch, t) -> tuple:
+    """A train-state leaf's dtype, shape and device, and two sums over its
+    raw words (the first plain, the second with each word weighted by an
+    odd number from its position): one changed word changes the second sum,
+    and two leaves that are bit for bit the same give the same digest."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.float64: torch.int64}
+    words = t.detach().reshape(-1)
+    words = words.view(ints[t.dtype]) if t.dtype in ints else words
+    plain = weighted = 0
+    chunk = 1 << 24
+    for start in range(0, words.numel(), chunk):
+        w = words[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start, start + w.numel(), device=w.device, dtype=torch.int64)
+        plain += int(w.sum())
+        weighted += int((w * (2 * (pos % 1_000_003) + 1)).sum())
+    return str(t.dtype), tuple(t.shape), str(t.device), plain, weighted
 
 
 def _free(torch) -> None:
@@ -2939,16 +3455,9 @@ def _train_main(torch, env) -> None:
     path = CK.save_train_state(state, TRAIN_SAVE_AT, str(TRAIN_CKPT_DIR))
     save_s = time.perf_counter() - t0
     ckpt_bytes = pathlib.Path(path).stat().st_size
-    t0 = time.perf_counter()
-    loaded = CK.load_train_state(ST.abstract_train_state(model), path, device=DEVICE)
-    sync(torch)
-    load_s = time.perf_counter() - t0
-    leaves, saved = tree_leaves(loaded), tree_leaves(state)
-    check(len(leaves) == len(saved) and all(_bits_equal(torch, a, b)
-                                            for a, b in zip(leaves, saved)),
-          "train_main: the loaded train state differs from the saved one")
-    del loaded, leaves, saved
-    _free(torch)
+    # the saved state's digest, leaf by leaf: the one load below is held to
+    # it bit for bit, then resumes (the state itself runs on uninterrupted)
+    saved_digests = [_leaf_digest(torch, leaf) for leaf in tree_leaves(state)]
     state, tail = LT.train_loop(state, timed, lambda: batch, TRAIN_SAVE_AT,
                                 TRAIN_STEPS - TRAIN_SAVE_AT, log=log.append)
     losses += tail
@@ -2959,7 +3468,13 @@ def _train_main(torch, env) -> None:
     state, split = _train_step_split(torch, step_fn, state, batch)
     del state
     _free(torch)
+    t0 = time.perf_counter()
     resumed = CK.load_train_state(ST.abstract_train_state(model), path, device=DEVICE)
+    sync(torch)
+    load_s = time.perf_counter() - t0
+    loaded_digests = [_leaf_digest(torch, leaf) for leaf in tree_leaves(resumed)]
+    check(loaded_digests == saved_digests,
+          "train_main: the loaded train state differs from the saved one")
     resumed, losses_resumed = LT.train_loop(resumed, step_fn, lambda: batch, TRAIN_SAVE_AT,
                                             TRAIN_STEPS - TRAIN_SAVE_AT, log=log.append)
     check(int(resumed["step"]) == TRAIN_STEPS, "train_main: the resumed run's step")
@@ -3407,6 +3922,7 @@ def main() -> int:
     decode_counts = phase_e2e(torch, torch.bfloat16, env)
     prefill_counts = phase_e2e_prefix(torch, env)
     tier_counts, host_route = phase_e2e_faults_tier(torch, env)
+    phase_e2e_fleet(torch, env)
     fine_counts = phase_e2e_moe_tp(torch, env)
     phase_sim_calibrate(torch, env)
     state_counts, state_fp32_counts = phase_e2e_state(torch, env)
