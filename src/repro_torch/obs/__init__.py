@@ -12,8 +12,6 @@
                   process and request shapes through ``ClusterSim`` under
                   any routing policy; a trace either package writes replays
                   in the other.
-* ``history``   — schema-versioned ``BENCH_<area>.json`` records. Nothing in
-                  the port records one; callers pass an explicit ``root``.
 """
 from repro_torch.obs.tracing import (Span, SpanRecorder, Trace, attach_tracer,
                                      read_trace, write_trace)

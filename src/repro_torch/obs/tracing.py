@@ -58,10 +58,18 @@ SUPPORTED_SCHEMAS = (1, 2, 3, 4, 5)
 # prefix blocks to DRAM under capacity pressure (trace_id -1: demotion is
 # pressure-driven, not owned by any one request); ``tier_promote`` one fused
 # host->pool plan bringing a prefix back for the request it serves.
+# ``decode_step`` is one engine decode step over its whole batch (trace_id
+# -1, as ``tier_demote``): its attrs count the batch's real lanes, padded
+# lanes and cached tokens, and stamp its phases on ``wall()``; the
+# ``prefill_chunk`` attrs ``t_upload`` / ``t_launch`` / ``t_write`` /
+# ``t_readback`` stamp a chunk's phases the same way (serving/engine.py).
+# Only real engines emit either's stamps; the simulator emits no
+# ``decode_step``. New names and attrs need no schema bump: the taxonomy
+# is open.
 SPAN_NAMES = ("queue", "admission", "prefill", "prefill_chunk", "transfer",
               "transfer_layer_window", "decode", "prefix_fetch",
               "failure", "transfer_retry", "recovery",
-              "tier_demote", "tier_promote")
+              "tier_demote", "tier_promote", "decode_step")
 
 
 @dataclasses.dataclass

@@ -139,6 +139,7 @@ class NodeEngine:
         self.decode_steps = 0          # decode cycles executed
         self.decode_dispatches = 0     # host-issued step calls those cycles made
         self._decode_cache_keys: Set[Tuple[int, int]] = set()   # buckets seen
+        self._step_attrs: Optional[dict] = None   # the traced decode step's span attrs
         # -- prefix-reuse data plane ---------------------------------------------------
         self.supports_prefix_reuse = self.paged and self.model.prefill_suffix is not None
         # Optional repro_torch.serving.host_tier.TierManager, attached by
@@ -189,49 +190,57 @@ class NodeEngine:
                 req.last_prefill_chunk_tokens = chunk
             cached = req.num_cached_prefix_tokens if self.supports_prefix_reuse else 0
             chunk_wall = time.monotonic()
+            # traced: the chunk's phase stamps (prep, upload, launch, write,
+            # readback); untraced, no clock read
+            stamps = None if self.tracer is None else {}
             if offset > 0:
                 # Suffix chunk: attend over the resident prefix K/V (cached
                 # prefix blocks plus earlier chunks' pages) and write only
                 # this chunk's pages.
                 k_pre, v_pre = self.kv.gather_prefix(req.request_id, offset)
-                tokens = self._tokens(req.prompt_tokens[offset:offset + chunk])
-                if self.tp_degree > 1:
-                    logits, cache = tp_mod.sharded_prefill_suffix(
-                        self.shard_params, self.cfg, tokens, k_pre[:, None],
-                        v_pre[:, None], self.merged_combine)
-                else:
-                    logits, cache = self.model.prefill_suffix(
-                        self.params, {"tokens": tokens}, k_pre[:, None], v_pre[:, None])
+            if stamps is not None:
+                stamps["t_upload"] = self.tracer.wall()
+            tokens = self._tokens(req.prompt_tokens[offset:offset + chunk])
+            if stamps is not None:
+                stamps["t_launch"] = self.tracer.wall()
+            if offset > 0 and self.tp_degree > 1:
+                logits, cache = tp_mod.sharded_prefill_suffix(
+                    self.shard_params, self.cfg, tokens, k_pre[:, None],
+                    v_pre[:, None], self.merged_combine)
+            elif offset > 0:
+                logits, cache = self.model.prefill_suffix(
+                    self.params, {"tokens": tokens}, k_pre[:, None], v_pre[:, None])
+            elif self.tp_degree > 1:
+                logits, cache = tp_mod.sharded_prefill(
+                    self.shard_params, self.cfg, tokens, self.merged_combine)
+            else:
+                logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+            if stamps is not None:
+                stamps["t_write"] = self.tracer.wall()
+            if self.paged:
                 self.kv.write_prefill(req.request_id, cache["k"][:, 0],
                                       cache["v"][:, 0], chunk, start=offset)
-                if offset == cached and cached > 0:
-                    self.prefix_hits += 1
-                    self.prefix_tokens_reused += cached
             else:
-                tokens = self._tokens(req.prompt_tokens[:chunk])
-                if self.tp_degree > 1:
-                    logits, cache = tp_mod.sharded_prefill(
-                        self.shard_params, self.cfg, tokens, self.merged_combine)
-                else:
-                    logits, cache = self.model.prefill(self.params, {"tokens": tokens})
-                if self.paged:
-                    self.kv.write_prefill(req.request_id, cache["k"][:, 0],
-                                          cache["v"][:, 0], chunk)
-                else:
-                    self.states[req.request_id] = cache
-            if final and not req.output_tokens:
+                self.states[req.request_id] = cache
+            if offset > 0 and offset == cached:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += cached
+            if final:
+                if stamps is not None:
+                    stamps["t_readback"] = self.tracer.wall()
                 # only the last chunk's last position predicts the next token;
                 # a recovery prefill (output_tokens non-empty) keeps its token
-                req.output_tokens.append(int(torch.argmax(logits[0])))
+                if not req.output_tokens:
+                    req.output_tokens.append(int(torch.argmax(logits[0])))
             self.prefill_tokens_computed += chunk
-            if self.tracer is not None:
+            if stamps is not None:
                 self.tracer.emit(
                     req.request_id, "prefill_chunk",
                     start_cycle=now, end_cycle=now,
                     start_wall_s=chunk_wall, end_wall_s=time.monotonic(),
                     node_id=self.node_id,
                     attrs={"offset": offset, "tokens": chunk,
-                           "prompt_len": req.prompt_len, "final": final})
+                           "prompt_len": req.prompt_len, "final": final, **stamps})
             if self.scheduler.prefill_progressed(req, chunk):
                 if now is not None and req.first_token_time is None:
                     req.first_token_time = now
@@ -253,12 +262,30 @@ class NodeEngine:
 
     # -- decode --------------------------------------------------------------------
     def run_decode(self, decision: ScheduleDecision) -> List[Request]:
-        """One decode step for the running batch; returns finished requests."""
+        """One decode step for the running batch; returns finished requests.
+
+        Traced, the step is one ``decode_step`` span (trace_id -1: the step
+        belongs to no one request) whose attrs count its real lanes
+        (``batch``), the lanes it ran (``lanes``) and the cached tokens its
+        real lanes attend (``context_tokens``); the paged-kernel step adds
+        its block-table width and the phase stamps ``t_upload``,
+        ``t_launch``, ``t_readback`` and ``t_post``, which with the span's
+        start and end cut it into prep, upload, launch, readback and post.
+        Untraced, the step reads no clock."""
         batch = decision.decode_batch
         if not batch:
             return []
+        attrs = None
+        if self.tracer is not None:
+            start = self.tracer.wall()
+            attrs = {"batch": len(batch), "lanes": len(batch),
+                     "context_tokens": sum(r.total_len - 1 for r in batch)}
+        self._step_attrs = attrs        # read by _decode_paged_kernel, this call only
+        try:
+            decoded = self._decode_paged(batch) if self.paged else self._decode_state(batch)
+        finally:
+            self._step_attrs = None
         finished: List[Request] = []
-        decoded = self._decode_paged(batch) if self.paged else self._decode_state(batch)
         for req in batch:
             last = req.output_tokens[-1]
             eos = req.sampling.eos_token_id
@@ -268,6 +295,10 @@ class NodeEngine:
                 self.scheduler.decode_finished(req)
         # bandwidth pressure = fraction of the admitted batch that decoded
         self.scheduler.last_bandwidth_util = decoded / max(1, len(batch))
+        if attrs is not None:
+            self.tracer.emit(-1, "decode_step", start_wall_s=start,
+                             end_wall_s=self.tracer.wall(), node_id=self.node_id,
+                             attrs=attrs)
         return finished
 
     def _decode_paged(self, batch: List[Request]) -> int:
@@ -281,8 +312,10 @@ class NodeEngine:
         Batch and block-table width are padded to power-of-two buckets; pad
         lanes replicate lane 0 (same token / length / block-table row), so
         their append descriptors duplicate lane 0's writes bit-identically
-        instead of aiming at block 0.
+        instead of aiming at block 0. A traced step's attrs take the bucket
+        and the phase stamps.
         """
+        attrs = self._step_attrs
         b = len(batch)
         # KV cached so far = prompt + all outputs except the newest token,
         # whose KV is written by THIS step at position total-1.
@@ -302,7 +335,11 @@ class NodeEngine:
         dev = self.device
         # decode_dispatches counts host-issued step calls: this branch makes
         # exactly ONE (the argmax below is a host read of its output).
+        if attrs is not None:
+            attrs.update(lanes=bp, width=wp, t_upload=self.tracer.wall())
         tok_t, bt_t, len_t = (torch.from_numpy(a).to(dev) for a in (tok_arr, bt, len_arr))
+        if attrs is not None:
+            attrs["t_launch"] = self.tracer.wall()
         if self.tp_degree > 1:
             logits, _ = tp_mod.sharded_decode_step_paged(
                 self.shard_params, self.cfg, tok_t, self.kv.pools, bt_t, len_t,
@@ -312,7 +349,11 @@ class NodeEngine:
         self.kv.num_pool_dispatches += 1
         self.decode_steps += 1
         self.decode_dispatches += 1
+        if attrs is not None:
+            attrs["t_readback"] = self.tracer.wall()
         nxt = torch.argmax(logits[:b], dim=-1).cpu().tolist()
+        if attrs is not None:
+            attrs["t_post"] = self.tracer.wall()
         for i, r in enumerate(batch):
             r.output_tokens.append(int(nxt[i]))
             r.decode_steps += 1

@@ -5,11 +5,13 @@ plane and the host tier, on the CPU, against the reference.
   reference's on the same samples; ``prefill_flops`` equals the reference's
   analytic count; the port's own prefill sweep times on the CPU, and the
   default device is the GPU (no fallback).
-* ``obs/history.py``: record, check and schema cases (``tests/test_obs.py``),
-  under ``tmp_path``.
 * ``obs/replay.py``: replay determinism, and captures crossing the packages
   in both directions with equal ``per_request`` and ``stats``.
 * The simulator's spans equal the reference's, span for span.
+* The engine's ``decode_step`` spans and the ``prefill_chunk`` phase stamps
+  on a tiny fp32 ``PDCluster`` (the paged-kernel step's CPU version, TP 2,
+  the dense oracle): counters, ordered stamps, no clock read untraced, and
+  the same served tokens with and without a tracer.
 * ``tests/test_fault_tolerance.py:304-340``: the failure scenario's chaos
   gate, its determinism and the chaos capture/replay.
 * ``tests/test_tiered_kv.py:388``: ``ClusterSim`` and the port's
@@ -20,6 +22,7 @@ plane and the host tier, on the CPU, against the reference.
 """
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -43,7 +46,6 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.obs import attach_tracer, read_trace  # noqa: E402
 from repro_torch.obs import calibrate as cal  # noqa: E402
-from repro_torch.obs.history import AREAS, check, check_metrics, load, record  # noqa: E402
 from repro_torch.obs.replay import capture, per_request_stats, replay  # noqa: E402
 from repro_torch.obs.tracing import SpanRecorder, write_trace  # noqa: E402
 from repro_torch.serving.cluster import PDCluster  # noqa: E402
@@ -135,47 +137,6 @@ def test_measure_prefill_on_cpu_and_no_fallback():
             cal.check()
 
 
-# -- bench history ---------------------------------------------------------------------
-def test_history_record_and_check(tmp_path):
-    m = {"flowkv_calls": 1.0, "flowkv_dispatches": 1.0, "flowkv_wall_s": 0.1}
-    record("transfer", m, root=tmp_path)
-    data = load("transfer", root=tmp_path)
-    assert data["baseline"] == m and len(data["entries"]) == 1
-    record("transfer", dict(m), root=tmp_path)
-    assert check("transfer", root=tmp_path) == []
-    record("transfer", {**m, "flowkv_calls": 2.0}, root=tmp_path)
-    failures = check("transfer", root=tmp_path)
-    assert failures and "flowkv_calls" in failures[0]
-    record("transfer", {**m, "flowkv_wall_s": 99.0}, root=tmp_path)
-    assert check("transfer", root=tmp_path) == []
-
-
-def test_history_modes_le_ge():
-    base = {"imbalance_load_aware_goodput": 0.8,
-            "imbalance_load_aware_p95_ttft_s": 10.0}
-    assert check_metrics("scenarios", base, {
-        "imbalance_load_aware_goodput": 0.79,
-        "imbalance_load_aware_p95_ttft_s": 10.4}) == []
-    assert len(check_metrics("scenarios", base, {
-        "imbalance_load_aware_goodput": 0.7,
-        "imbalance_load_aware_p95_ttft_s": 12.0})) == 2
-    assert check_metrics("scenarios", base,
-                         {"imbalance_load_aware_goodput": 0.8}) != []
-
-
-def test_history_schema_guard(tmp_path):
-    from repro.obs.history import AREAS as REF_AREAS
-
-    p = tmp_path / "BENCH_transfer.json"
-    p.write_text('{"schema": 999, "area": "transfer"}')
-    with pytest.raises(ValueError, match="schema"):
-        load("transfer", root=tmp_path)
-    with pytest.raises(ValueError, match="unknown area"):
-        record("nonsense", {}, root=tmp_path)
-    assert {a: {k: (s.mode, s.tol) for k, s in specs.items()} for a, specs in AREAS.items()} \
-        == {a: {k: (s.mode, s.tol) for k, s in specs.items()} for a, specs in REF_AREAS.items()}
-
-
 # -- simulator spans -----------------------------------------------------------------
 def _records(rec):
     return [s.to_record() for s in rec.spans]
@@ -209,6 +170,133 @@ def test_sim_spans_equal_reference():
             assert len(rec.by_name("transfer_layer_window")) == \
                 -(-n_layers // 8) * len(rec.by_name("transfer"))
             assert any(s.attrs["hidden"] for s in rec.by_name("transfer_layer_window"))
+
+
+# -- the engine's step spans -----------------------------------------------------------
+ENGINE_PATHS = {"kernel": {}, "tp2": {"tp_degrees": {0: 2, 1: 2}},
+                "dense": {"paged_decode": "dense"}}
+DECODE_STAMPS = ("t_upload", "t_launch", "t_readback", "t_post")
+
+
+def _serve(path, traced):
+    """Three prompts (20-45 tokens, chunks of 16 rounded up to a block) served by a tiny fp32
+    1P+1D cluster on ``path``; each engine's decode batches' sum of cached
+    tokens, taken before each step."""
+    cfg = get_smoke_config("qwen3-1.7b")
+    assert cfg.dtype == torch.float32
+    cluster = PDCluster(cfg, T.init_params(cfg, 0, device="cpu"), num_prefill=1,
+                        num_decode=1, num_blocks=64, prefill_chunk_tokens=16, device="cpu",
+                        **ENGINE_PATHS[path])
+    rec = attach_tracer(cluster) if traced else None
+    contexts = {nid: [] for nid in cluster.engines}
+    for nid, eng in cluster.engines.items():
+        def run_decode(decision, _run=eng.run_decode, _seen=contexts[nid]):
+            if decision.decode_batch:
+                _seen.append(sum(r.total_len - 1 for r in decision.decode_batch))
+            return _run(decision)
+        eng.run_decode = run_decode
+    rng = np.random.RandomState(7)
+    reqs = [Request(prompt_tokens=rng.randint(0, cfg.vocab_size, size=n).tolist(),
+                    sampling=SamplingParams(max_new_tokens=m))
+            for n, m in ((20, 6), (45, 4), (33, 7))]
+    assert len(cluster.run(reqs, max_cycles=200)) == 3
+    return cluster, rec, reqs, contexts
+
+
+@pytest.fixture(scope="module")
+def served():
+    """``_serve`` once a (path, traced) for the module's tests; the clusters
+    are dropped after them, so no later test finds their caches alive."""
+    runs = {}
+
+    def get(path, traced):
+        if (path, traced) not in runs:
+            runs[path, traced] = _serve(path, traced)
+        return runs[path, traced]
+    yield get
+    runs.clear()
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_one_decode_step_span_per_decode_step(path, served):
+    cluster, rec, _, contexts = served(path, True)
+    steps = rec.by_name("decode_step")
+    assert steps and all(s.trace_id == -1 for s in steps)
+    for nid, eng in cluster.engines.items():
+        mine = [s for s in steps if s.node_id == nid]
+        assert len(mine) == eng.decode_steps == len(contexts[nid])
+        assert [s.attrs["context_tokens"] for s in mine] == contexts[nid]
+    for s in steps:
+        a = s.attrs
+        assert 1 <= a["batch"] <= a["lanes"]
+        stamps = [s.start_wall_s] + [a.get(k) for k in DECODE_STAMPS] + [s.end_wall_s]
+        if path == "dense":             # the oracle: counters only, no padding
+            assert a["lanes"] == a["batch"] and set(a) == {"batch", "lanes", "context_tokens"}
+        else:
+            assert a["lanes"] == 1 << (a["batch"] - 1).bit_length() and a["width"] >= 1
+            assert stamps == sorted(stamps)
+    if path != "dense":
+        assert any(s.attrs["lanes"] > s.attrs["batch"] for s in steps)     # 3 lanes run 4
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_prefill_chunk_spans_gain_ordered_stamps(path, served):
+    _, rec, reqs, _ = served(path, True)
+    for r in reqs:
+        chunks = [s for s in rec.for_trace(r.request_id) if s.name == "prefill_chunk"]
+        offsets = [s.attrs["offset"] for s in chunks]
+        assert offsets == [0] + [s.attrs["offset"] + s.attrs["tokens"] for s in chunks[:-1]]
+        assert offsets[-1] + chunks[-1].attrs["tokens"] == r.prompt_len
+        assert len(chunks) == 1 + (r.prompt_len > 32)          # chunks end on blocks of 32
+        for s in chunks:
+            a = s.attrs
+            assert a["prompt_len"] == r.prompt_len
+            assert a["final"] == (a["offset"] + a["tokens"] == r.prompt_len)
+            keys = ["t_upload", "t_launch", "t_write"] + (["t_readback"] if a["final"] else [])
+            assert set(a) == {"offset", "tokens", "prompt_len", "final", *keys}
+            stamps = [s.start_wall_s] + [a[k] for k in keys] + [s.end_wall_s]
+            assert stamps == sorted(stamps)
+
+
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_served_tokens_equal_with_and_without_a_tracer(path, served):
+    traced, untraced = served(path, True)[2], served(path, False)[2]
+    assert [r.output_tokens for r in traced] == [r.output_tokens for r in untraced]
+    assert all(len(r.output_tokens) == r.sampling.max_new_tokens for r in traced)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_an_untraced_decode_step_reads_no_clock(traced, monkeypatch):
+    cfg = get_smoke_config("qwen3-1.7b")
+    cluster = PDCluster(cfg, T.init_params(cfg, 0, device="cpu"), num_prefill=1,
+                        num_decode=1, num_blocks=64, device="cpu")
+    if traced:
+        attach_tracer(cluster)
+    reads, inside = [], []
+    monotonic, wall = time.monotonic, SpanRecorder.wall
+
+    def count(fn):
+        def counted(*a):
+            if inside:
+                reads.append(fn)
+            return fn(*a)
+        return counted
+    monkeypatch.setattr(time, "monotonic", count(monotonic))
+    monkeypatch.setattr(SpanRecorder, "wall", count(wall))
+    for eng in cluster.engines.values():
+        def run_decode(decision, _run=eng.run_decode):
+            inside.append(1)
+            try:
+                return _run(decision)
+            finally:
+                inside.pop()
+        eng.run_decode = run_decode
+    reqs = [Request(prompt_tokens=list(range(3, 3 + n)), sampling=SamplingParams(max_new_tokens=4))
+            for n in (12, 25)]
+    assert len(cluster.run(reqs, max_cycles=100)) == 2
+    assert sum(e.decode_steps for e in cluster.engines.values()) >= 3
+    # traced: a wall() and its monotonic() at each of the six stamps
+    assert bool(reads) == traced
 
 
 # -- replay ---------------------------------------------------------------------------
