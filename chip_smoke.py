@@ -50,7 +50,9 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  of 200-1500 tokens, 16 new tokens each): tokens identical
                  to the port's monolithic greedy_generate, one transfer
                  dispatch per plan, decode_dispatches == decode_steps,
-                 checksums pass, K1/K3 launched.
+                 checksums pass, K3 run layers times a step and one K1
+                 append a step, counted from the profiler's device records
+                 (``device_launches``: a graph replay calls no wrapper).
 5. ``e2e_bf16`` — the same at the config's own bfloat16: first tokens equal
                  to monolithic prefill, one paged step's logits within a
                  stated tolerance of the dense step on the same state, full
@@ -129,8 +131,8 @@ Phases, each printing one JSON line (any failure exits nonzero):
                  monolithic greedy_generate, whose streams hold at least
                  4 distinct tokens of 8; 1 / 2 / 4 K1
                  launches a transfer (one per shard pair), every device
-                 verify passing, no leak, K3 launched layers x shards times
-                 a step, K1 / K4 / K5b launched. On one prefilled state,
+                 verify passing, no leak, K3 run layers x shards times a
+                 step (device records), K1 / K4 / K5b launched. On one prefilled state,
                  the first decode step's logits: paged at TP 1 against
                  dense decode_step, and paged at TP 2 and 4 against TP 1
                  (fail above 1e-3); the sharded prefill of 1100 tokens at
@@ -816,21 +818,56 @@ PROMPT_LENS = [200, 640, 1100, 1500]
 NEW_TOKENS = 16
 
 
+PROFILE_PAD_S = 0.25       # idle before and after the work a profile counts
+
+
+def device_launches(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler recording the device only, with the
+    wrappers' counters set to 0 first: ``(fn's result, launch counts)``.
+    A decode step replayed from a CUDA graph runs K3 and K1 without calling
+    their wrappers, whose counters hold the host's calls (a capture's
+    included), so K3's and K1's counts here are the device's records of
+    their kernels, ``paged_decode`` and ``kv_transfer`` (less K5b's
+    scatter and the fine-row moves, which run K1's kernels eagerly). The
+    profiler keeps only the records inside its window, and the device's
+    clock may run tens of ms from the host's, so the window is padded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sync(torch)
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        out = fn()
+        sync(torch)
+        time.sleep(PROFILE_PAD_S)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    counts = launch_counts()
+    k1 = sum("kv_transfer" in n for n in names)
+    counts.update(paged_decode_attention=sum("paged_decode" in n for n in names),
+                  kv_transfer=k1 - counts["kv_scatter"] - counts["kv_transfer_fine"])
+    return out, counts
+
+
 def run_cluster(torch, cfg, params, prompts, max_batch_tokens):
     """Serve the prompts through FlowKVClient on 1P+1D; returns (client,
-    handles, launch counts of this run)."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    handles, launch counts of this run: ``device_launches``)."""
     from repro_torch.serving.api import FlowKVClient
     from repro_torch.serving.request import SamplingParams
 
     client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1, num_blocks=256,
                           max_batch_tokens=max_batch_tokens, device=DEVICE)
-    sync(torch)
-    reset_launch_counts()
-    handles = [client.submit(p, SamplingParams(max_new_tokens=NEW_TOKENS)) for p in prompts]
-    client.drain(max_cycles=500)
-    sync(torch)
-    counts = launch_counts()
+
+    def serve():
+        handles = [client.submit(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+                   for p in prompts]
+        client.drain(max_cycles=500)
+        return handles
+
+    handles, counts = device_launches(torch, serve)
     return client, handles, counts
 
 
@@ -856,6 +893,12 @@ def check_cluster(client, handles, counts, tag):
     check(counts["kv_transfer"] > 0 and counts["paged_decode_attention"] > 0
           and counts["flash_prefill"] > 0 and counts["kv_scatter"] > 0,
           f"{tag}: kernels not launched on the main path: {counts}")
+    layers = client.cluster.cfg.num_layers
+    check(counts["paged_decode_attention"] == s["decode_steps"] * layers,
+          f"{tag}: {counts['paged_decode_attention']} K3 runs for {s['decode_steps']} "
+          f"steps of {layers} layers")
+    check(k1_per_step(client.cluster, counts, s) == 1.0,
+          f"{tag}: {k1_per_step(client.cluster, counts, s)} K1 appends a decode step")
     check(s["leaked_blocks"] == 0.0, f"{tag}: leaked blocks")
     return s
 
@@ -1112,9 +1155,8 @@ CHUNK_TOKENS = 384                     # the donor's 1120 tokens take 3 chunks
 
 def _staggered(torch, cfg, params, prompts, **kw):
     """Serve the donor, then the followers once the donor's KV is resident
-    on the decode node; returns (cluster, requests, launch counts, span
-    recorder, per-request fetch walls)."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    on the decode node; returns (cluster, requests, launch counts
+    (``device_launches``), span recorder, per-request fetch walls)."""
     from repro_torch.obs.tracing import attach_tracer
     from repro_torch.serving.cluster import PDCluster
     from repro_torch.serving.request import Request, SamplingParams
@@ -1137,22 +1179,22 @@ def _staggered(torch, cfg, params, prompts, **kw):
     reqs = [Request(prompt_tokens=list(p),
                     sampling=SamplingParams(max_new_tokens=PREFIX_NEW_TOKENS))
             for p in prompts]
-    sync(torch)
-    reset_launch_counts()
-    cluster.submit(reqs[0])
-    for _ in range(40):
-        cluster.step()
-        if reqs[0].transfer_end_wall is not None:
-            break
-    check(reqs[0].transfer_end_wall is not None, "e2e_prefix: the donor never transferred")
-    for r in reqs[1:]:
-        cluster.submit(r)
-    for _ in range(300):
-        cluster.step()
-        if len(cluster.finished) == len(reqs):
-            break
-    sync(torch)
-    counts = launch_counts()
+
+    def serve():
+        cluster.submit(reqs[0])
+        for _ in range(40):
+            cluster.step()
+            if reqs[0].transfer_end_wall is not None:
+                break
+        check(reqs[0].transfer_end_wall is not None, "e2e_prefix: the donor never transferred")
+        for r in reqs[1:]:
+            cluster.submit(r)
+        for _ in range(300):
+            cluster.step()
+            if len(cluster.finished) == len(reqs):
+                break
+
+    _, counts = device_launches(torch, serve)
     check(len(cluster.finished) == len(reqs),
           f"e2e_prefix: {len(cluster.finished)} of {len(reqs)} finished")
     return cluster, reqs, counts, rec, fetch_wall
@@ -2381,9 +2423,12 @@ def _tp_kernel_cases(torch, peaks, gen, flush) -> dict:
     return rows
 
 
-def _moe_serve(torch, cfg, params, prompts, tp_degrees, max_batch_tokens):
+def _moe_serve(torch, cfg, params, prompts, tp_degrees, max_batch_tokens, records=False):
     """Serve the prompts on 1P+1D at the given TP degrees through
-    FlowKVClient; returns (client, handles, launch counts, wall seconds)."""
+    FlowKVClient; returns (client, handles, launch counts, wall seconds).
+    With ``records`` the counts are ``device_launches``' and the wall holds
+    the profiler's cost; without, they are the wrappers' (the host's
+    calls)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.api import FlowKVClient
     from repro_torch.serving.request import SamplingParams
@@ -2391,13 +2436,23 @@ def _moe_serve(torch, cfg, params, prompts, tp_degrees, max_batch_tokens):
     client = FlowKVClient(cfg, params, num_prefill=1, num_decode=1, num_blocks=MOE_BLOCKS,
                           max_batch_tokens=max_batch_tokens, tp_degrees=dict(tp_degrees),
                           device=DEVICE)
+
+    def serve():
+        handles = [client.submit(p, SamplingParams(max_new_tokens=MOE_NEW_TOKENS))
+                   for p in prompts]
+        client.drain(max_cycles=500)
+        return handles
+
     sync(torch)
-    reset_launch_counts()
     t0 = time.perf_counter()
-    handles = [client.submit(p, SamplingParams(max_new_tokens=MOE_NEW_TOKENS)) for p in prompts]
-    client.drain(max_cycles=500)
-    sync(torch)
-    return client, handles, launch_counts(), time.perf_counter() - t0
+    if records:
+        handles, counts = device_launches(torch, serve)
+    else:
+        reset_launch_counts()
+        handles = serve()
+        sync(torch)
+        counts = launch_counts()
+    return client, handles, counts, time.perf_counter() - t0
 
 
 def _paged_state(torch, cfg, params, prompts, tp, num_blocks=MOE_BLOCKS):
@@ -2615,7 +2670,8 @@ def phase_e2e_moe_tp(torch, env) -> dict:
     fine_counts = None
     for tpd in MOE_TP:
         key = f"{tpd[0]}->{tpd[1]}"
-        client, handles, counts, wall = _moe_serve(torch, cfg, params, prompts, tpd, 2048)
+        client, handles, counts, wall = _moe_serve(torch, cfg, params, prompts, tpd, 2048,
+                                                   records=True)
         s = client.stats()
         outs = [list(map(int, h.request.output_tokens)) for h in handles]
         xfers = [t for t in client.cluster.transfers if t.kind == "kv"]

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import encdec, griffin, mamba2, transformer
+from repro_torch.models import encdec, griffin, mamba2, moe, transformer
 from repro_torch.models.common import ModelConfig
 
 Params = Dict[str, Any]
@@ -43,6 +43,9 @@ class Model:
     # Zero-gather decode; None means the engine must use the dense bridge
     # (the paged kernel has no local-window mask).
     decode_paged: Optional[Callable[..., Tuple[torch.Tensor, torch.Tensor]]] = None
+    # Whether decode_paged's forward has static shapes and reads nothing on
+    # the host, so that a CUDA engine can capture it as a graph.
+    decode_paged_static: bool = False
     # Suffix-only prefill for prefix hits and prefill chunks; None means the
     # engine must run the full prefill (windowed attention).
     prefill_suffix: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
@@ -75,6 +78,7 @@ def _transformer_model(cfg: ModelConfig) -> Model:
         decode_paged=None if cfg.attn_window > 0 else (
             lambda p, tok, pool, bt, lens: transformer.decode_step_paged(
                 p, cfg, tok, pool, bt, lens)),
+        decode_paged_static=cfg.attn_window == 0 and not moe.host_routed(cfg),
         prefill_suffix=None if cfg.attn_window > 0 else (
             lambda p, b, pk, pv: transformer.prefill_suffix(p, cfg, b["tokens"], pk, pv)),
     )

@@ -178,9 +178,26 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return out.to(dtype)
 
 
+_ROPE_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    """``1 / theta ** (arange(0, hd, 2) / hd)`` in fp32 (hd/2,), built once
+    per ``(head_dim, theta, device)`` on that device and reused: the build
+    copies ``theta`` from the host, which on a GPU waits for the stream, and
+    a forward that makes no such copy can be captured as a CUDA graph. The
+    cached tensor is shared: callers must not write to it."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (head_dim, float(theta), dev)
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        # a plain tensor whatever the caller's mode, so that training can
+        # reuse one built under inference_mode
+        with torch.inference_mode(False), torch.no_grad():
+            exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+            freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=dev), exps)
+        _ROPE_FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

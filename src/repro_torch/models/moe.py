@@ -179,6 +179,13 @@ def moe_ffn_gshard_einsum(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
     return out, switch_aux(density / k, probs, e)
 
 
+def host_routed(cfg: ModelConfig) -> bool:
+    """Whether the model's FFN takes :func:`moe_ffn_topk_sparse`, which reads
+    the router's expert ids on the host to group tokens: its shapes follow
+    the data, so a forward through it cannot be captured as a CUDA graph."""
+    return cfg.family == "moe" and cfg.top_k == 1 and cfg.moe_sparse_dispatch
+
+
 def moe_ffn_topk_sparse(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig
                         ) -> Tuple[Tensor, Tensor]:
     """Top-1 routing: each token runs only its argmax expert, scaled by that

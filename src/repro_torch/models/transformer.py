@@ -117,7 +117,7 @@ def _ffn_aux(lp: Params, x: Tensor, cfg: ModelConfig
     dense FFN)."""
     if cfg.family == "moe":
         moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
-        if cfg.top_k == 1 and cfg.moe_sparse_dispatch:
+        if MOE.host_routed(cfg):
             return MOE.moe_ffn_topk_sparse(moe_p, x, cfg)
         if cfg.moe_dispatch == "gshard":
             return MOE.moe_ffn_gshard(moe_p, x, cfg, cfg.moe_capacity_factor)

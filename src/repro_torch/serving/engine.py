@@ -15,15 +15,22 @@ as the path for windowed attention.
   no prefix reuse: those need pages.
 
 "One dispatch per decode cycle" keeps the reference's meaning: one
-host-issued step call (``decode_dispatches`` counts those). In eager torch
-that call makes many kernel launches (K3 once per layer, K1 once); capturing
-each bucket's step as a CUDA graph — the analogue of the reference's jit
-cache — is ROADMAP work.
+host-issued step call (``decode_dispatches`` counts those), which makes many
+kernel launches (K3 once per layer, K1 once).
 
 Ragged batches are padded to power-of-two buckets in BOTH batch size and
 block-table width (pad lanes replicate lane 0, so their duplicate append
 descriptors are idempotent); ``decode_compile_variants`` counts the buckets
-seen.
+seen. On a CUDA engine at ``tp_degree == 1`` whose paged forward has static
+shapes (``Model.decode_paged_static``: every paged family but the top-1
+sparse MoE dispatch, which reads expert ids on the host), each bucket's step
+is captured as a CUDA graph at its first sight, after an eager run of it,
+and replayed after that (``serving/decode_graphs.py``), the analogue of the
+reference's jit cache: the step's inputs go in by asynchronous copies from
+pinned memory and the replay enqueues the whole forward at once.
+``decode_graph_captures`` / ``decode_graph_replays`` count both. The
+sharded step, the dense oracle, the state path and every CPU engine run
+eagerly.
 
 The enc-dec family is refused: its prefill needs the request's encoder
 frames, which a request does not carry. The reference fails the same way at
@@ -49,6 +56,7 @@ from repro_torch.core.scheduler.hybrid_scheduler import HybridScheduler, Schedul
 from repro_torch.distributed import tp as tp_mod
 from repro_torch.models.api import Model, get_model
 from repro_torch.models.common import ModelConfig
+from repro_torch.serving.decode_graphs import DecodeGraphs
 from repro_torch.serving.kv_cache import PagedKVCache, ShardedKVCache, spec_for_model
 from repro_torch.serving.request import Request
 
@@ -140,6 +148,12 @@ class NodeEngine:
         self.decode_dispatches = 0     # host-issued step calls those cycles made
         self._decode_cache_keys: Set[Tuple[int, int]] = set()   # buckets seen
         self._step_attrs: Optional[dict] = None   # the traced decode step's span attrs
+        # the paged step replayed from a CUDA graph a bucket, where the
+        # engine can see that it may be captured
+        self.graphs: Optional[DecodeGraphs] = None
+        if (self.use_paged_decode and tp_degree == 1 and self.device.type == "cuda"
+                and self.model.decode_paged_static):
+            self.graphs = DecodeGraphs(self.device, cfg.num_kv_heads)
         # -- prefix-reuse data plane ---------------------------------------------------
         self.supports_prefix_reuse = self.paged and self.model.prefill_suffix is not None
         # Optional repro_torch.serving.host_tier.TierManager, attached by
@@ -156,6 +170,16 @@ class NodeEngine:
     def decode_compile_variants(self) -> int:
         """Distinct (batch, block-table-width) buckets the step ran."""
         return len(self._decode_cache_keys)
+
+    @property
+    def decode_graph_captures(self) -> int:
+        """Paged steps that ran eagerly and captured their bucket's graph."""
+        return 0 if self.graphs is None else self.graphs.captures
+
+    @property
+    def decode_graph_replays(self) -> int:
+        """Paged steps served by replaying their bucket's graph."""
+        return 0 if self.graphs is None else self.graphs.replays
 
     def _tokens(self, ids) -> torch.Tensor:
         return torch.as_tensor([list(ids)], dtype=torch.int32).to(self.device)
@@ -267,11 +291,13 @@ class NodeEngine:
         Traced, the step is one ``decode_step`` span (trace_id -1: the step
         belongs to no one request) whose attrs count its real lanes
         (``batch``), the lanes it ran (``lanes``) and the cached tokens its
-        real lanes attend (``context_tokens``); the paged-kernel step adds
-        its block-table width and the phase stamps ``t_upload``,
+        real lanes attend (``context_tokens``) and how it ran (``graph``:
+        ``"replay"``, ``"capture"`` or ``"eager"``); the paged-kernel step
+        adds its block-table width and the phase stamps ``t_upload``,
         ``t_launch``, ``t_readback`` and ``t_post``, which with the span's
         start and end cut it into prep, upload, launch, readback and post.
-        Untraced, the step reads no clock."""
+        A graph's step uploads into pinned memory, and its launch is the
+        inputs' copies and the replay. Untraced, the step reads no clock."""
         batch = decision.decode_batch
         if not batch:
             return []
@@ -279,7 +305,8 @@ class NodeEngine:
         if self.tracer is not None:
             start = self.tracer.wall()
             attrs = {"batch": len(batch), "lanes": len(batch),
-                     "context_tokens": sum(r.total_len - 1 for r in batch)}
+                     "context_tokens": sum(r.total_len - 1 for r in batch),
+                     "graph": "eager"}
         self._step_attrs = attrs        # read by _decode_paged_kernel, this call only
         try:
             decoded = self._decode_paged(batch) if self.paged else self._decode_state(batch)
@@ -313,7 +340,9 @@ class NodeEngine:
         lanes replicate lane 0 (same token / length / block-table row), so
         their append descriptors duplicate lane 0's writes bit-identically
         instead of aiming at block 0. A traced step's attrs take the bucket
-        and the phase stamps.
+        and the phase stamps. An engine with ``graphs`` stages the inputs
+        in its bucket's pinned buffers and replays (or first captures) the
+        bucket's graph instead of calling ``decode_paged``.
         """
         attrs = self._step_attrs
         b = len(batch)
@@ -332,15 +361,23 @@ class NodeEngine:
         len_arr = np.full((bp,), lens[0], np.int32)
         len_arr[:b] = lens
         self._decode_cache_keys.add((bp, wp))
-        dev = self.device
+        dev, graphs = self.device, self.graphs
         # decode_dispatches counts host-issued step calls: this branch makes
         # exactly ONE (the argmax below is a host read of its output).
         if attrs is not None:
             attrs.update(lanes=bp, width=wp, t_upload=self.tracer.wall())
-        tok_t, bt_t, len_t = (torch.from_numpy(a).to(dev) for a in (tok_arr, bt, len_arr))
+        if graphs is not None:
+            bucket = graphs.stage(tok_arr, bt, len_arr)
+        else:
+            tok_t, bt_t, len_t = (torch.from_numpy(a).to(dev) for a in (tok_arr, bt, len_arr))
         if attrs is not None:
             attrs["t_launch"] = self.tracer.wall()
-        if self.tp_degree > 1:
+        if graphs is not None:
+            logits, how = graphs.run(bucket, self.model.decode_paged, self.params,
+                                     self.kv.pool)
+            if attrs is not None:
+                attrs["graph"] = how
+        elif self.tp_degree > 1:
             logits, _ = tp_mod.sharded_decode_step_paged(
                 self.shard_params, self.cfg, tok_t, self.kv.pools, bt_t, len_t,
                 self.merged_combine)

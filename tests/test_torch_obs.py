@@ -229,9 +229,11 @@ def test_one_decode_step_span_per_decode_step(path, served):
     for s in steps:
         a = s.attrs
         assert 1 <= a["batch"] <= a["lanes"]
+        assert a["graph"] == "eager"    # a CPU engine replays no CUDA graph
         stamps = [s.start_wall_s] + [a.get(k) for k in DECODE_STAMPS] + [s.end_wall_s]
         if path == "dense":             # the oracle: counters only, no padding
-            assert a["lanes"] == a["batch"] and set(a) == {"batch", "lanes", "context_tokens"}
+            assert a["lanes"] == a["batch"] and \
+                set(a) == {"batch", "lanes", "context_tokens", "graph"}
         else:
             assert a["lanes"] == 1 << (a["batch"] - 1).bit_length() and a["width"] >= 1
             assert stamps == sorted(stamps)

@@ -33,7 +33,13 @@ log as usual) and keeps the run the metric readers saw. Then prints one
   and chunks before the profiler;
 * ``htod_per_span``: the median number of host-to-device copies a decode
   step and a prefill chunk of the slice make, whole and in the launch
-  phase (each pageable copy waits for the stream to drain).
+  phase (each pageable copy waits for the stream to drain);
+* ``transfer_split``: each ``transfer`` span of the slice (the P->D move
+  and its verify, what ``transfer_p50_ms.qa`` reads) cut on the device's
+  clock at its K1 runs: the wait from the span's start to K1's start, the
+  device's busy time in that wait (work queued ahead of K1), K1's own
+  device time, and the rest to the span's end (the verify and its
+  read-back); medians in ms over the spans.
 """
 import argparse
 import json
@@ -137,6 +143,29 @@ def _copies_per_span(run, name, kind):
             "launch": statistics.median(launch) if launch else None}
 
 
+def _transfer_split(run):
+    """Medians (ms) of each ``transfer`` span of the slice cut at its K1
+    runs (device records named ``kv_transfer`` starting inside it)."""
+    k1 = sorted((s, e) for n, s, e in run.device_records if "kv_transfer" in n)
+    lo, hi = run.slice_mono
+    rows = []
+    for sp in run.spans:
+        if sp.name != "transfer" or sp.start_wall_s is None or sp.end_wall_s is None \
+                or sp.start_wall_s < lo or sp.end_wall_s > hi:
+            continue
+        a, b = phases.to_device_ns(run, sp.start_wall_s), phases.to_device_ns(run, sp.end_wall_s)
+        mine = [r for r in k1 if a <= r[0] <= b]
+        if not mine:
+            continue
+        first, last = mine[0][0], max(e for _, e in mine)
+        rows.append({"span": b - a, "wait": first - a,
+                     "wait_busy": devtrace.busy_ns(run.device_records, a, first),
+                     "k1": sum(e - s for s, e in mine), "after": b - last})
+    return {"spans": len(rows),
+            **{k + "_ms_p50": statistics.median(r[k] for r in rows) / 1e6 if rows else None
+               for k in ("span", "wait", "wait_busy", "k1", "after")}}
+
+
 def analyse(run, moved):
     lo, hi = run.slice_ns
     inside = phases.idle_by_phase(run)
@@ -170,6 +199,7 @@ def analyse(run, moved):
         "host_ms": {"decode": _medians_ms(steps), "prefill": _medians_ms(chunks)},
         "htod_per_span": {"decode_step": _copies_per_span(run, "decode_step", "HtoD"),
                           "prefill_chunk": _copies_per_span(run, "prefill_chunk", "HtoD")},
+        "transfer_split": _transfer_split(run),
     }
 
 
