@@ -3,12 +3,31 @@ cell's traffic through ``FlowKVClient.submit`` / ``step``, time what a
 client sees, read the per-layer metrics in a traced run, and judge the
 served tokens against the plain reference.
 
-Everything a cell needs is found by name: the cell's entry in
-``BENCHMARK.json`` names its configuration (``configs/*.json``, whose
-``reference`` names ``reference/<name>.py``) and its traffic mix
-(``traffic/<mix>.json``); ``cells/<workload>.json`` holds its load (rate or
-clients), the pools and the correctness limit; each metric is read by
-``metrics/<metric>.py``.
+Everything a cell needs is found by name, so that a cell, a configuration,
+a mix or a metric is added as files alone:
+
+* ``BENCHMARK.json``'s entry names the cell's configuration and its mix;
+* ``configs/<config>.json``: the sizes as run (``port_config`` reads them,
+  a ``port`` object for any family the port builds; ``flops.py`` counts the
+  published keys, and ``port_config`` refuses a file whose two disagree)
+  and ``reference``, which names ``reference/<reference>.py``;
+* ``traffic/<mix>.json``: the generator's parameters (``traffic.py``);
+* ``cells/<workload>.json``: the load (``rate`` or ``clients``),
+  ``num_blocks`` and ``max_batch_tokens`` a node, ``warmup``,
+  ``trace_slice_s`` and ``check`` (the correctness limits, ``check.py``);
+* ``metrics/<metric>.py``: ``read(run) -> float | None``;
+* ``families/<family>.py``: ``counted_keys(ModelConfig) -> dict``, for a
+  family of the port that ``counted_keys`` here does not know.
+
+A reference module has to offer two functions, and the harness and
+``check.py`` use nothing else of it:
+
+* ``make_weights(cfg, seed, device) -> params``: the weights from the seed
+  on the device, in the port's layout and served type; the program gets
+  these same tensors;
+* ``logits_at(params, cfg, tokens, rows, quant=None) -> Tensor``: float32
+  logits ``(len(rows), vocab)`` of the sequence ``tokens`` at ``rows``;
+  ``quant="fp8"`` is the control, the same forward a precision step below.
 """
 from __future__ import annotations
 
@@ -23,6 +42,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from flowbench import check, traffic
+
+
+FAMILIES = pathlib.Path(__file__).resolve().parent / "families"
 
 
 class NoDevice(RuntimeError):
@@ -86,11 +108,98 @@ def load_cell(workload: str, bench_root: pathlib.Path) -> Cell:
 
 
 def port_config(cfg: Dict):
-    """The configuration file as the port's ``ModelConfig``."""
+    """The configuration file as the port's ``ModelConfig``.
+
+    A file with a ``port`` object builds ``ModelConfig(name=<name>,
+    family=<family>, **port)``: ``family`` is any family
+    ``models.api.get_model`` builds, each key of ``port`` is a field of
+    ``ModelConfig`` (an unknown one is an error), ``dtype`` is the name of a
+    torch type and a tuple is a list. A file without one is a dense or top-k
+    MoE decoder read from its published keys (``ffn`` says which).
+
+    A file that ``flops.py`` can count (it has ``ffn``) describes the model
+    twice, so the published keys that ``flops.py`` reads have to be what the
+    port builds (``counted_keys``): a file whose two disagree is refused."""
+    out = _build_port_config(cfg)
+    if "ffn" in cfg:
+        built, counted = counted_keys(out), _counted_keys_of_file(cfg)
+        differ = {k: (counted.get(k), v) for k, v in built.items() if counted.get(k) != v}
+        if differ:
+            raise ValueError(f"{cfg['name']}: flops.py would count another model than the "
+                             f"port builds; key: (file, built) {differ}")
+    return out
+
+
+def counted_keys(mc) -> Dict:
+    """The published keys that ``flops.py`` reads, as they describe the
+    model the port builds from the ``ModelConfig`` ``mc``. A family other
+    than dense, MoE and Mamba-2 is described by ``families/<family>.py``'s
+    ``counted_keys(mc)``; without one, and for windowed attention, this
+    raises: the port builds a layer that ``flops.py`` has no count for."""
+    own = FAMILIES / f"{mc.family}.py"
+    if mc.family not in ("dense", "moe", "ssm") and own.exists():
+        return load_module(own, f"flowbench_family_{mc.family}").counted_keys(mc)
+    if mc.family in ("dense", "moe") and not mc.attn_window:
+        out = {"layer_types": ["attention"] * mc.num_layers,
+               "num_attention_heads": mc.num_heads,
+               "num_key_value_heads": mc.num_kv_heads, "head_dim": mc.head_dim}
+    elif mc.family == "ssm":
+        # models/mamba2.py: Mamba-2 mixers with one group of B and C, no FFN
+        out = {"layer_types": ["mamba"] * mc.num_layers, "mamba_n_heads": mc.ssm_heads,
+               "mamba_d_head": mc.ssm_head_dim, "mamba_d_state": mc.ssm_state,
+               "mamba_n_groups": 1, "mamba_d_conv": mc.ssm_conv,
+               "mamba_chunk_size": mc.ssm_chunk}
+    else:
+        what = "windowed attention" if mc.attn_window else f"the {mc.family!r} family"
+        raise ValueError(f"{mc.name}: flops.py has no count for {what} as the port "
+                         f"builds it")
+    if mc.family == "moe":
+        out.update(ffn="moe_topk", intermediate_size=mc.moe_d_ff,
+                   num_local_experts=mc.num_experts, num_experts_per_tok=mc.top_k)
+    elif mc.family == "dense":
+        out.update(ffn="gated_mlp", intermediate_size=mc.d_ff)
+    else:
+        out.update(ffn="none")
+    out.update(hidden_size=mc.d_model, num_hidden_layers=mc.num_layers,
+               vocab_size=mc.vocab_size, shared_intermediate_size=0,
+               dtype=str(mc.dtype).removeprefix("torch."))
+    return out
+
+
+def _counted_keys_of_file(cfg: Dict) -> Dict:
+    """The keys ``counted_keys`` names, as ``flops.py`` reads them from the
+    file: its defaults filled in."""
+    from flowbench import flops
+
+    out = dict(cfg, layer_types=flops.layer_kinds(cfg),
+               shared_intermediate_size=cfg.get("shared_intermediate_size", 0),
+               mamba_n_groups=cfg.get("mamba_n_groups", 1))
+    if "num_attention_heads" in cfg:
+        out["head_dim"] = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
+    return out
+
+
+def _build_port_config(cfg: Dict):
     import torch
+    from repro_torch.models.api import get_model
     from repro_torch.models.common import ModelConfig
 
+    if "port" in cfg:
+        kw = dict(cfg["port"])
+        fields = {f.name for f in dataclasses.fields(ModelConfig)} - {"name", "family"}
+        unknown = sorted(set(kw) - fields)
+        if unknown:
+            raise ValueError(f"{cfg['name']}: port keys {unknown} are not fields of "
+                             f"ModelConfig (name and family sit beside port)")
+        if "dtype" in kw:
+            kw["dtype"] = getattr(torch, kw["dtype"])
+        kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+        out = ModelConfig(name=cfg["name"], family=cfg["family"], **kw)
+        get_model(out)                      # an unknown family raises here
+        return out
     moe = cfg["ffn"] == "moe_topk"
+    if cfg.get("family", "moe" if moe else "dense") != ("moe" if moe else "dense"):
+        raise ValueError(f"{cfg['name']}: family {cfg['family']!r} needs a port object")
     kw = dict(num_experts=cfg["num_local_experts"], top_k=cfg["num_experts_per_tok"],
               moe_d_ff=cfg["intermediate_size"], d_ff=0) if moe else \
         dict(d_ff=cfg["intermediate_size"])
@@ -276,6 +385,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
                           device=dev)
     if plant is not None:
         plant(client)
+    preempted = _count_preemptions(client)
     run = Run(cell=cell, peak=flops.peaks(kind) if platform == "gpu" else None)
     drv = Driver(client, run, SamplingParams)
     vocab = cell.cfg["vocab_size"]
@@ -334,8 +444,13 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
     span = min(seconds / 2, float(cell.load.get("trace_slice_s", 10.0)))
     run.traced_from = t_close
     pending = list(gen.window) if open_loop else []
-    pools = [eng.scheduler.bm for eng in client.cluster.engines.values()]
+    engines = list(client.cluster.engines.values())
+    pools = [eng.scheduler.bm for eng in engines]
     pool_peak = [0] * len(pools)
+    preempted_before, rejected_before = preempted[0], len(client.cluster.rejected)
+    computed = sum(eng.prefill_tokens_computed for eng in engines)
+    chunk_steps = 0
+    captures_before = sum(eng.decode_graph_captures for eng in engines)
     while True:
         now = time.monotonic()
         if now >= t_close:
@@ -361,6 +476,8 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
         run.t_end = st.t1
         held = [bm.num_blocks - bm.num_free - bm.num_cached for bm in pools]
         pool_peak = [max(a, b) for a, b in zip(pool_peak, held)]
+        was, computed = computed, sum(eng.prefill_tokens_computed for eng in engines)
+        chunk_steps += computed > was
         if not open_loop:
             for r in done:
                 nxt = gen.next_request(r.client, first=False)
@@ -372,6 +489,9 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
         run.slice_ns = (run.slice_ns[0], time.time_ns())
         prof.stop()
     backlog = sum(1 for r in run.window_reqs() if r.first_t is None)
+    window_preempted = preempted[0] - preempted_before
+    window_rejected = len(client.cluster.rejected) - rejected_before
+    window_captures = sum(eng.decode_graph_captures for eng in engines) - captures_before
     # -- the drain: every request sent in the window gets its first token ----
     drain_until = time.monotonic() + float(cell.mix.get("drain_s", 0.0))
     while open_loop and any(r.first_t is None for r in run.window_reqs()) \
@@ -430,11 +550,14 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
                f"device {kind}, peak {peak} B")
     log.append("pool blocks held by requests in the window, most at once: " + ", ".join(
         f"node {i} {n} of {bm.num_blocks}" for i, (n, bm) in enumerate(zip(pool_peak, pools))))
+    log.append(f"in the window: {chunk_steps} of {len(run.steps)} steps ran a prefill "
+               f"chunk; {window_captures} decode graphs captured; {window_preempted} "
+               f"decode preemptions, {window_rejected} requests refused")
 
     # -- correctness: the program's state freed, then the reference ------------
     served = [(r.prompt, r.output, r.max_new) for r in run.reqs
               if r.state == "finished" and r.token_t and r.token_t[-1] >= t_start]
-    del drv, client, tracer, timeline, prof, pools
+    del drv, client, tracer, timeline, prof, pools, engines
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -450,8 +573,21 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
     result["summary"] = {"backlog_at_close": backlog, "window_s": run.window_s,
                          "steps": len(run.steps), "setup_s": run.setup_s,
                          "late_max_s": max(run.late_s, default=0.0),
-                         "pool_blocks_peak": pool_peak}
+                         "pool_blocks_peak": pool_peak, "chunk_steps": chunk_steps,
+                         "preempted": window_preempted, "rejected": window_rejected}
     return result
+
+
+def _count_preemptions(client) -> List[int]:
+    """A one-item counter of the decode preemptions (a request swapped out
+    under KV pressure) that the client's engines make from now on."""
+    count = [0]
+    for eng in client.cluster.engines.values():
+        def counted(*a, _preempt=eng.scheduler._preempt, **kw):
+            count[0] += 1
+            return _preempt(*a, **kw)
+        eng.scheduler._preempt = counted
+    return count
 
 
 def _warm_up(drv: Driver, cell: Cell, seed: int) -> None:

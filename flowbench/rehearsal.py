@@ -57,11 +57,17 @@ def tiny_root(root: pathlib.Path) -> pathlib.Path:
     bench["configs"] = [{"name": c["name"], "source": "test", "reduced": [], "why": "test",
                          "file": f"{bench['paths'][0]}/configs/{c['name']}.json"}
                         for c in (TINY_CONFIG, TINY_MOE)]
-    bench["workloads"] = [{"name": n, "config": c, "traffic": t, "chips": 1, "why": "test"}
-                          for n, (c, t, _) in CELLS.items()]
+    # a metric listed for cells of a loop is listed for the tiny cells of it
+    mixes = {w["name"]: w["traffic"] for w in bench["workloads"]}
+    loop_of = {n: json.loads((dst / "traffic" / f"{mixes[n]}.json").read_text())["loop"]
+               for n in mixes}
+    tiny_loop = {n: (TINY_OPEN if t == TINY_OPEN["name"] else TINY_CLOSED)["loop"]
+                 for n, (_, t, _) in CELLS.items()}
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            loop = "open" if any(w.endswith("lb-qa") for w in m["workloads"]) else "closed"
-            m["workloads"] = [n for n in names if n.endswith(loop)]
+            loops = {loop_of[w] for w in m["workloads"]}
+            m["workloads"] = [n for n in names if tiny_loop[n] in loops]
+    bench["workloads"] = [{"name": n, "config": c, "traffic": t, "chips": 1, "why": "test"}
+                          for n, (c, t, _) in CELLS.items()]
     (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return root

@@ -111,11 +111,13 @@ def test_latencies_a_client_sees():
     # gaps whose later token came in (t_start, t_end]; the pre-roll's count
     assert sorted(readers.itl_gaps(run)) == pytest.approx(sorted([0.1, 0.2, 0.0, 0.2, 0.3, 3.9]))
     mods = {m: harness.load_module(ROOT / "flowbench" / "metrics" / f"{m}.py", m)
-            for m in ("ttft_p50_s", "ttft_p90_s", "itl_p90_ms")}
+            for m in ("ttft_p50_s", "ttft_p90_s", "itl_p90_ms", "output_tok_s")}
     assert mods["ttft_p50_s"].read(run) == pytest.approx(1.0)
     assert mods["ttft_p90_s"].read(run) == pytest.approx(1.8)
     assert mods["itl_p90_ms"].read(run) == pytest.approx(1000 * float(np.percentile(
         [0.1, 0.2, 0.0, 0.2, 0.3, 3.9], 90)))
+    # tokens stamped in (t_start, t_end]: 3 + 4 + 0 + 2, over the 10 s window
+    assert mods["output_tok_s"].read(run) == pytest.approx(0.9)
 
 
 @pytest.mark.parametrize("cfg_name", ["qwen3-1.7b", "granite-moe-1b-a400m"])

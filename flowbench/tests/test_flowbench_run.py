@@ -48,7 +48,7 @@ def test_the_served_path_is_judged_correct(tiny, cell):
     assert res["correct"], res["checks"]
     assert res["failed"] == 0 and res["attempted"] > 0
     want = {"ttft_p50_s", "ttft_p90_s", "itl_p90_ms", "setup_s"} if cell.endswith("open") \
-        else {"itl_p90_ms", "setup_s"}
+        else {"itl_p90_ms", "setup_s", "output_tok_s", "itl_p90_ms.gov"}
     assert set(res["metrics"]) == want
     assert all(m["value"] > 0 for m in res["metrics"].values())
     assert res["checks"]["max_logit_gap"]["value"] <= 1e-4
@@ -56,6 +56,20 @@ def test_the_served_path_is_judged_correct(tiny, cell):
     assert res["checks"]["tokens_compared"]["value"] >= 10
     assert res["device"] == {"platform": "cpu", "kind": "cpu", "count": 1,
                              "memory_peak_bytes": 0}
+
+
+def test_a_traced_closed_run_reads_the_gov_span_metrics(tiny):
+    res = _run(tiny, "tiny.closed", trace=True)
+    assert res["correct"], res["checks"]
+    got = {k: m["value"] for k, m in res["metrics"].items()}
+    assert {"decode_step_p50_ms.gov", "decode_host_p50_ms.gov", "decode_pad_pct.gov",
+            "decode_graph_pct.gov"} <= set(got)
+    assert 0 < got["decode_host_p50_ms.gov"] <= got["decode_step_p50_ms.gov"]
+    # a CPU engine steps eagerly: no step replays a graph
+    assert got["decode_graph_pct.gov"] == 0.0
+    # no card, no device trace: the device's metrics say nothing
+    assert not {"launch_idle_pct.gov", "mfu.gov", "k3_roofline.gov",
+                "device_idle_pct.gov"} & set(got)
 
 
 def test_the_reference_runs_after_the_programs_state_is_freed(tiny, monkeypatch):
@@ -104,7 +118,7 @@ def _half_batch(client):
     eng.model = dataclasses.replace(eng.model, decode_paged=bad)
 
 
-@pytest.mark.parametrize("cell", ["tiny.open", "tiny-moe.open"])
+@pytest.mark.parametrize("cell", ["tiny.open", "tiny-moe.open", "tiny.closed"])
 @pytest.mark.parametrize("fault", ["alter_token", "half_batch", "stale_state", "no_transfer"])
 def test_a_fault_under_the_timed_path_is_not_correct(tiny, monkeypatch, fault, cell):
     plant = None
@@ -231,15 +245,24 @@ def card():
         pytest.skip("needs a CUDA card (run on the H100)")
 
 
-@pytest.mark.gpu
-def test_the_control_is_not_correct_at_the_cells_load_on_the_card(card):
-    out = subprocess.run([sys.executable, "flowbench/calibrate.py", "--workload",
-                          "qwen3-1.7b.lb-qa", "--seconds", "20", "--seeds", str(SEED),
+def _program_and_control_on_the_card(workload: str, seconds: int) -> None:
+    out = subprocess.run([sys.executable, "flowbench/calibrate.py", "--workload", workload,
+                          "--seconds", str(seconds), "--seeds", str(SEED),
                           "--control", str(SEED)],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"] and not res["control_correct"], res
+
+
+@pytest.mark.gpu
+def test_the_control_is_not_correct_at_the_cells_load_on_the_card(card):
+    _program_and_control_on_the_card("qwen3-1.7b.lb-qa", 20)
+
+
+@pytest.mark.gpu
+def test_the_control_is_not_correct_at_the_govreport_load_on_the_card(card):
+    _program_and_control_on_the_card("qwen3-1.7b.lb-govreport", 30)
 
 
 @pytest.mark.gpu

@@ -17,11 +17,8 @@ from flowbench import traffic  # noqa: E402
 MIXES = ROOT / "flowbench" / "traffic"
 QA = json.loads((MIXES / "lb-qa.json").read_text())
 # the paper's gov_report profile as the port's sim/workload.py LONGBENCH states it,
-# in a closed loop (no cell runs it yet)
-GOV = {"name": "lb-govreport", "loop": "closed",
-       "prompt_len": {"dist": "normal", "mean": 8734, "std": 3000, "min": 16},
-       "output_len": {"dist": "normal", "mean": 512, "std": 120, "min": 8},
-       "first_output": "uniform_below", "preroll_cycles": 30, "drain_s": 0}
+# in a closed loop
+GOV = json.loads((MIXES / "lb-govreport.json").read_text())
 BIG = 2**31 + 12345
 
 
@@ -46,8 +43,12 @@ def test_lb_qa_offers_every_seed_one_schedule_and_other_tokens():
     assert [r.prompt_len for r in c.window] != [r.prompt_len for r in a.window]
 
 
-@pytest.mark.parametrize("mix,load", [(dict((k, v) for k, v in QA.items() if k != "schedule_seed"),
-                                       {"rate": 2.0}), (GOV, {"clients": 26})])
+def _unfixed(mix):
+    return {k: v for k, v in mix.items() if k != "schedule_seed"}
+
+
+@pytest.mark.parametrize("mix,load", [(_unfixed(QA), {"rate": 2.0}),
+                                      (_unfixed(GOV), {"clients": 26})])
 def test_seeds_share_sizes_in_another_order(mix, load):
     def sizes(seed):
         if mix["loop"] == "open":
@@ -60,6 +61,19 @@ def test_seeds_share_sizes_in_another_order(mix, load):
     assert sorted(x for x, _ in a) == sorted(x for x, _ in b)
     assert sorted(y for _, y in a) == sorted(y for _, y in b)
     assert a != b
+
+
+def test_lb_govreport_offers_every_seed_one_schedule_and_other_tokens():
+    a = traffic.ClosedLoop(GOV, {"clients": 24}, 7, 1000)
+    b = traffic.ClosedLoop(GOV, {"clients": 24}, BIG, 1000)
+    assert a.plens.tolist() == b.plens.tolist() and a.olens.tolist() == b.olens.tolist()
+    assert a.first_u.tolist() == b.first_u.tolist()
+    ra, rb = a.next_request(0, first=True), b.next_request(0, first=True)
+    assert (ra.prompt_len, ra.max_new) == (rb.prompt_len, rb.max_new)
+    assert ra.prompt != rb.prompt
+    c = traffic.ClosedLoop(_unfixed(GOV), {"clients": 24}, 7, 1000)
+    assert sorted(c.plens[:24].tolist()) == sorted(a.plens[:24].tolist())
+    assert c.plens.tolist() != a.plens.tolist()
 
 
 def test_lb_qa_lengths_and_arrivals():

@@ -26,7 +26,9 @@ Two loops:
   the fill (the first round) and every later round hold the same sizes for
   every seed. A client's first request draws its output length uniformly
   below its drawn length (``first_output: uniform_below``), so completions
-  spread from the start.
+  spread from the start. ``schedule_seed`` fixes the order of the sizes as
+  in the open loop: which sizes a window meets depends on their order, so
+  without it the tokens a second of a window move with the seed.
 """
 from __future__ import annotations
 
@@ -150,7 +152,7 @@ class ClosedLoop:
     def __init__(self, mix: Dict, cell: Dict, seed: int, vocab: int):
         self.clients = int(cell["clients"])
         self.seed, self.vocab = seed, vocab
-        rng = rng_for(seed, 2)
+        rng = rng_for(int(mix.get("schedule_seed", seed)), 2)
         n = self.clients * self.POOL_PER_CLIENT
         self.plens = rounds(mix["prompt_len"], n, self.clients, rng)
         self.olens = rounds(mix["output_len"], n, self.clients, rng)
