@@ -59,6 +59,9 @@ class ModelCost:
     flops_per_token: float          # prefill FLOPs per prompt token (~2N)
     kv_bytes_per_token: float       # KV cache bytes per token (all layers)
     weight_bytes: float             # bytes read per decode step (weights)
+    # a request's state moved beside its K/V whatever its length (a state
+    # slot: granitemoehybrid's Mamba-2 state); one more transfer call
+    state_bytes_per_request: float = 0.0
 
 
 @dataclasses.dataclass
@@ -668,6 +671,9 @@ class GlobalController:
         # cross-degree transfers pay one fused dispatch per overlapping
         # (src_shard, dst_shard) head-range pair, bytes conserved
         calls = sharded_transfer_calls(p.tp_degree, d.tp_degree)
+        if self.model_cost.state_bytes_per_request:
+            nbytes += self.model_cost.state_bytes_per_request
+            calls += 1
         if self.layer_window > 0:
             # Layer-window streaming: only the wire time that spills past the
             # producing prefill tail is exposed. The hide window is the LAST

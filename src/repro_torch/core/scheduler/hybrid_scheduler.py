@@ -115,6 +115,13 @@ class HybridScheduler:
         # estimate must never bill compute the engine cannot actually skip
         # (the phantom-hit bug this replaces).
         self.resolve_prefix: Optional[Callable[[Request], List[int]]] = None
+        # -- per-request state beside the blocks ---------------------------------
+        # Called before a request is admitted into prefill or resumed into
+        # decode: an engine that holds a state slot per request takes one
+        # for it (kept if admission waits anyway) and says False when none
+        # is free, so the request waits as it would for blocks. None admits
+        # on blocks alone.
+        self.can_admit: Optional[Callable[[Request], bool]] = None
 
     # -- queue entry points (called by the controller / engine) -----------------
     def enqueue_prefill(self, req: Request) -> None:
@@ -265,6 +272,8 @@ class HybridScheduler:
             # a spilled prefill holds no blocks — re-allocate before admission
             # (was: admitted without blocks, so a resumed spill would crash)
             if not self.bm.owns(req.request_id):
+                if self.can_admit is not None and not self.can_admit(req):
+                    break
                 if not self.bm.can_allocate(req.prompt_len + 1):
                     break
                 req.block_ids = self.bm.allocate(req.request_id, req.prompt_len + 1)
@@ -275,6 +284,8 @@ class HybridScheduler:
             budget -= chunk
         while self.prefill.waiting and budget > 0 and len(self.prefill.running) < self.max_running:
             req = self.prefill.waiting[0]
+            if self.can_admit is not None and not self.can_admit(req):
+                break   # no state slot free — leave in waiting
             owned = self.bm.owns(req.request_id)
             prefix_blocks: List[int] = []
             if owned:
@@ -341,6 +352,8 @@ class HybridScheduler:
         # resume swapped requests first when KV space frees up (vLLM order)
         while self.decode.swapped:
             req = self.decode.swapped[0]
+            if self.can_admit is not None and not self.can_admit(req):
+                break
             if not self.bm.can_allocate(req.total_len + 1):
                 break
             self.decode.swapped.popleft()

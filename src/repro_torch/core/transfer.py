@@ -52,6 +52,9 @@ Built-in backends, keyed in the module registry
   three schedules above, executed against the paged pools.
 * ``state``  — :class:`StateBackend`; whole-pytree movement for the
   ssm / hybrid / encdec families (one logical segment).
+* ``paged_state`` — :class:`PagedStateBackend`; the paged plan of a
+  family's attention K/V plus one contiguous device copy of the request's
+  state slot (granitemoehybrid's Mamba-2 state).
 * ``sim``    — :class:`SimulatedBackend`; exact planning + pricing with a
   no-op data plane, for the discrete-event simulator (models e.g. a DCN hop
   without touching device memory). Its call AND dispatch counts come from the
@@ -797,6 +800,8 @@ class TransferJob:
     plan: Optional[TransferPlan] = None          # paged backends
     src_blocks: Tuple[int, ...] = ()
     dst_blocks: Tuple[int, ...] = ()
+    state_bytes: int = 0                # a state slot's row moved beside the pages
+    state_slots: Tuple[int, ...] = ()   # (src slot, dst slot)
 
 
 class TransferBackend:
@@ -900,6 +905,44 @@ class StateBackend(TransferBackend):
         dst.import_state_by_id(job.request_id, src.export_state_by_id(job.request_id))
 
 
+class PagedStateBackend(PagedBackend):
+    """The pages of a family's attention layers plus its request's state
+    slot (``serving/state_slots.StateSlots``): the page plan as
+    :class:`PagedBackend` makes it, then ONE contiguous copy of the slot's
+    row from the source node's slots into a slot taken on the destination,
+    on the device (a real copy, not a hand-off). The job counts the page
+    plan's calls and dispatches plus one, its bytes include the row, and
+    its price covers both. Ports also expose ``slots``."""
+
+    name = "paged_state"
+
+    def plan(self, req, src, dst) -> TransferJob:
+        dst_slot = dst.slots.acquire(req.request_id)
+        if dst_slot is None:
+            raise RuntimeError(f"no free state slot on node {dst.node_id} for request "
+                               f"{req.request_id}")
+        try:
+            job = super().plan(req, src, dst)
+        except BaseException:
+            dst.slots.release(req.request_id)
+            raise
+        job.backend = self.name
+        job.state_bytes = src.slots.slot_bytes
+        job.state_slots = (src.slots.slot_of(req.request_id), dst_slot)
+        job.num_calls += 1
+        job.num_dispatches += 1
+        job.num_bytes += job.state_bytes
+        return job
+
+    def execute(self, job: TransferJob, src, dst) -> None:
+        super().execute(job, src, dst)
+        dst.slots.copy_from(src.slots, *job.state_slots)
+        job.num_dispatches += 1
+
+    def price(self, job: TransferJob, profile: TransportProfile) -> float:
+        return profile.latency(num_calls=job.num_calls, num_bytes=job.num_bytes)
+
+
 class SimulatedBackend(TransferBackend):
     """Exact planning + pricing with a no-op data plane (e.g. a modeled DCN
     hop). Ports are ``SimNode``-shaped: ``bm`` / ``kv_spec`` / ``planner``.
@@ -958,6 +1001,8 @@ def available_backends() -> List[str]:
 
 def backend_for_engine(engine, schedule: Schedule = "flowkv") -> TransferBackend:
     """Pick the backend matching an engine port's cache transport."""
+    if getattr(engine, "slots", None) is not None:
+        return get_backend("paged_state", schedule=schedule)
     if getattr(engine, "paged", False):
         return get_backend("paged", schedule=schedule)
     return get_backend("state")
@@ -965,4 +1010,5 @@ def backend_for_engine(engine, schedule: Schedule = "flowkv") -> TransferBackend
 
 register_backend("paged", PagedBackend)
 register_backend("state", StateBackend)
+register_backend("paged_state", PagedStateBackend)
 register_backend("sim", SimulatedBackend)

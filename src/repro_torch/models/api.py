@@ -14,7 +14,10 @@ config — the protocol the serving engine talks to::
     prefill_suffix(params, batch, prefix_k, prefix_v) -> (logits, cache)
 
 The state families (ssm, hybrid, encdec) have neither of the last two, as
-in the reference: their caches are not paged. ``input_specs`` gives the
+in the reference: their caches are not paged. ``granitemoehybrid`` pages
+its attention K/V and keeps its Mamba-2 state in slots: it has
+``decode_paged`` (with the slots) and ``prefill_chunk`` instead of
+``prefill_suffix``. ``input_specs`` gives the
 dry-run's batch shapes as ``meta`` tensors.
 """
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import encdec, griffin, mamba2, moe, transformer
+from repro_torch.models import encdec, granite_hybrid, griffin, mamba2, moe, transformer
 from repro_torch.models.common import ModelConfig
 
 Params = Dict[str, Any]
@@ -49,6 +52,12 @@ class Model:
     # Suffix-only prefill for prefix hits and prefill chunks; None means the
     # engine must run the full prefill (windowed attention).
     prefill_suffix: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
+    # A family whose request state is paged K/V beside a state slot
+    # (granitemoehybrid): one prefill chunk from the carried state,
+    # prefill_chunk(params, tokens, prefix_k, prefix_v, conv, h) ->
+    # (logits, {k, v}, conv, h); its decode_paged also takes
+    # (slot_ids, slots) after the lengths.
+    prefill_chunk: Optional[Callable[..., Tuple[Any, ...]]] = None
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -61,7 +70,33 @@ def get_model(cfg: ModelConfig) -> Model:
                                    cache_axes=lambda: griffin.cache_axes(cfg))
     if cfg.family == "encdec":
         return _encdec_model(cfg)
+    if cfg.family == "granitemoehybrid":
+        return _granite_hybrid_model(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _no_dense_decode(*a, **kw):
+    raise ValueError("granitemoehybrid decodes through decode_paged (pages and state "
+                     "slots); it has no dense-cache decode")
+
+
+def _granite_hybrid_model(cfg: ModelConfig) -> Model:
+    G = granite_hybrid
+    return Model(
+        cfg=cfg,
+        init=lambda seed=0, device=None: G.init_params(cfg, seed, device),
+        param_axes=lambda: G.param_axes(cfg),
+        loss=lambda p, b: G.loss_fn(p, cfg, b),
+        prefill=lambda p, b: G.prefill(p, cfg, b["tokens"]),
+        decode=_no_dense_decode,
+        init_cache=lambda batch, max_len, **kw: G.init_cache(cfg, batch, max_len, **kw),
+        cache_axes=G.cache_axes,
+        decode_paged=lambda p, tok, pool, bt, lens, slot_ids, slots: G.decode_step_paged(
+            p, cfg, tok, pool, bt, lens, slot_ids, slots),
+        decode_paged_static=True,
+        prefill_chunk=lambda p, tokens, pk, pv, conv, h: G.prefill_chunk(
+            p, cfg, tokens, pk, pv, conv, h),
+    )
 
 
 def _transformer_model(cfg: ModelConfig) -> Model:

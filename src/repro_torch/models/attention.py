@@ -53,15 +53,22 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
 
 def qkv_project(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                 positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), with RoPE + qk-norm."""
+    """x (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd), with RoPE + qk-norm.
+
+    Without RoPE (``use_rope=False``, NoPE) positions are unused. A score
+    scale other than 1/sqrt(hd) (``attn_scale``) is folded into q, so every
+    attention path (plain, K4, K3) keeps dividing by sqrt(hd)."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attn_scale:
+        q = q * (cfg.attn_scale * math.sqrt(cfg.head_dim))
     return q, k, v
 
 

@@ -22,7 +22,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | audio
+    family: str                      # dense | moe | ssm | hybrid | granitemoehybrid | encdec | vlm | audio
     num_layers: int
     d_model: int
     vocab_size: int
@@ -33,6 +33,8 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     attn_window: int = 0             # 0 = full causal; >0 = local windowed
+    use_rope: bool = True            # False: no position embedding (NoPE)
+    attn_scale: float = 0.0          # score scale; 0 = 1/sqrt(head_dim)
     # mlp
     d_ff: int = 0
     activation: str = "silu"         # silu (swiglu) | gelu (geglu)
@@ -40,13 +42,17 @@ class ModelConfig:
     num_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
+    moe_experts_held: int = 0        # experts this device holds (0 = all num_experts)
+    shared_d_ff: int = 0             # a shared gated expert beside the routed ones
     # ssm (mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv: int = 4
     ssm_chunk: int = 64
-    # hybrid (recurrentgemma)
+    ssm_conv_bias: bool = False
+    # hybrid (recurrentgemma: "rec" | "attn"; granitemoehybrid: "mamba" | "attn"),
+    # repeated over the layers
     layer_pattern: Tuple[str, ...] = ()
     lru_width: int = 0
     # encoder-decoder
@@ -60,6 +66,10 @@ class ModelConfig:
     block_size: int = 32             # KV page size (tokens)
     tie_embeddings: bool = True
     embed_scale: bool = False        # gemma-style sqrt(d_model) input scale
+    embed_multiplier: float = 1.0    # granite: embeddings x this
+    residual_multiplier: float = 1.0  # granite: each residual branch x this
+    logits_scaling: float = 1.0      # granite: logits / this
+    state_slots: int = 0             # state slots a node holds (granitemoehybrid)
     norm_eps: float = 1e-6
     # attention impl knobs
     attn_q_chunk: int = 512
@@ -104,17 +114,37 @@ class ModelConfig:
     def num_attention_layers(self) -> int:
         if self.family == "ssm":
             return 0
-        if self.family == "hybrid" and self.layer_pattern:
-            pat = self.layer_pattern
-            full, rem = divmod(self.num_layers, len(pat))
-            return full * sum(1 for t in pat if t == "attn") + sum(
-                1 for t in pat[:rem] if t == "attn")
+        if self.family in ("hybrid", "granitemoehybrid") and self.layer_pattern:
+            return self.layer_kinds().count("attn")
         return self.num_layers
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Each layer's mixer, ``layer_pattern`` repeated over the depth."""
+        pat = self.layer_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
+    @property
+    def experts_held(self) -> int:
+        return self.moe_experts_held or self.num_experts
+
+    def state_slot_bytes(self) -> int:
+        """Bytes of one request's state slot (the granitemoehybrid family's
+        Mamba-2 layers: fp32 h and the conv tail in the served type); 0 for
+        a family that holds no slot."""
+        if self.family != "granitemoehybrid":
+            return 0
+        layers = self.layer_kinds().count("mamba")
+        h = self.ssm_heads * self.ssm_head_dim * self.ssm_state * 4
+        tail = (self.ssm_conv - 1) * (self.ssm_d_inner + 2 * self.ssm_state) \
+            * self.dtype.itemsize
+        return layers * (h + tail)
 
     def num_params(self) -> int:
         """Analytic parameter count (the reference's, family by family)."""
         d, v = self.d_model, self.vocab_size
         emb = v * d
+        if self.family == "granitemoehybrid":
+            return emb + sum(self._granite_layer_params(k) for k in self.layer_kinds())
         if self.family == "ssm":
             di, n, h = self.ssm_d_inner, self.ssm_state, self.ssm_heads
             per = d * (2 * di + 2 * n + h) + di * d + di + h  # in/x/B/C/dt proj + out
@@ -135,8 +165,25 @@ class ModelConfig:
             return emb + self.num_encoder_layers * per + self.num_layers * (per + cross)
         return emb + self.num_layers * per
 
+    def _granite_layer_params(self, kind: str) -> int:
+        """One granitemoehybrid layer: its mixer and the MoE this device
+        holds (router, held experts, shared expert); norms and gains left out."""
+        d, di, n, h = self.d_model, self.ssm_d_inner, self.ssm_state, self.ssm_heads
+        if kind == "mamba":
+            mixer = d * (2 * di + 2 * n + h) + di * d + self.ssm_conv * (di + 2 * n)
+        else:
+            mixer = 2 * d * self.num_heads * self.head_dim \
+                + 2 * d * self.num_kv_heads * self.head_dim
+        return mixer + d * self.num_experts + 3 * d * (
+            self.experts_held * self.moe_d_ff + self.shared_d_ff)
+
     def active_params(self) -> int:
         """Active params per token (MoE: only top_k experts count)."""
+        if self.family == "granitemoehybrid":
+            # a token runs top_k x held / num_experts of the held experts
+            idle = self.experts_held - self.top_k * self.experts_held / self.num_experts
+            return self.num_params() - int(self.num_layers * idle * 3 * self.d_model
+                                           * self.moe_d_ff)
         if self.family != "moe":
             return self.num_params()
         d = self.d_model

@@ -105,15 +105,18 @@ def softplus(x: Tensor) -> Tensor:
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None
-                 ) -> Tuple[Tensor, Tensor]:
+def _causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None,
+                 bias: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Depthwise causal conv. x (B,S,C), w (cw,C); state (B,cw-1,C) carries
-    the last cw-1 inputs across calls. Returns (silu(out), new_state)."""
+    the last cw-1 inputs across calls; ``bias`` (C,) is added before the
+    silu. Returns (silu(out), new_state)."""
     cw = w.shape[0]
     if state is None:
         state = x.new_zeros((x.shape[0], cw - 1, x.shape[2]))
     xx = torch.cat([state.to(x.dtype), x], dim=1)            # (B, S+cw-1, C)
     out = sum(xx[:, i:i + x.shape[1]] * w[i][None, None] for i in range(cw))
+    if bias is not None:
+        out = out + bias
     new_state = xx[:, -(cw - 1):] if cw > 1 else state
     return F.silu(out), new_state
 

@@ -103,6 +103,22 @@ def moe_ffn(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, 
     return out, switch_aux(density, probs, cfg.num_experts)
 
 
+def moe_share_ffn(p: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
+                  first: int = 0) -> Tensor:
+    """One device's share of an expert-parallel layer, dense dispatch: the
+    router keeps all ``num_experts`` outputs and its top-k (a softmax over
+    the top-k logits, the same as the top-k of the full softmax
+    renormalised), and the layer computes only the part of the result that
+    the experts it holds give. ``p["w_*"]`` hold experts ``first ..
+    first + E_held - 1``; what the absent experts would add is left out.
+    x (B, S, D) -> (B, S, D). Static shapes: every held expert sees every
+    token, and the combine keeps the routed ones."""
+    held = p["w_gate"].shape[0]
+    combine = dense_combine(router_probs(x, p["router"]), cfg.top_k)
+    combine = combine[..., first:first + held].to(x.dtype)
+    return combine_experts(expert_outputs(p, x, cfg.activation), combine, x.shape)
+
+
 def _capacity(s: int, cfg: ModelConfig, capacity_factor: float) -> int:
     return max(1, int(s * cfg.top_k * capacity_factor / cfg.num_experts))
 

@@ -78,6 +78,9 @@ def request_from_dict(d: dict) -> Request:
 def cluster_state(cluster) -> dict:
     nodes = {}
     for nid, engine in cluster.engines.items():
+        if engine.slots is not None:
+            raise ValueError(f"{engine.cfg.family!r} holds state slots, which a "
+                             "checkpoint does not save")
         sched = engine.scheduler
         node = {
             "role": cluster.controller.nodes[nid].role,

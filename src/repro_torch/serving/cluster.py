@@ -124,6 +124,7 @@ class PDCluster:
             flops_per_token=2.0 * cfg.active_params(),
             kv_bytes_per_token=float(cfg.kv_bytes_per_token() or 1024),
             weight_bytes=2.0 * cfg.num_params(),
+            state_bytes_per_request=float(cfg.state_slot_bytes()),
         )
         n_attn = cfg.num_attention_layers() or cfg.num_layers
         self.controller = GlobalController(model_cost, cfg.block_size, target=target,
@@ -230,6 +231,8 @@ class PDCluster:
             nd = self._pick_decode_node(exclude={req.decode_node})
             req.decode_node = nd if nd is not None else src.node_id
         dst = self.engines[req.decode_node]
+        if src is not dst and not dst.can_accept_transfer(req):
+            return      # no state slot free on dst: stays SENDING, retried next cycle
         req.transfer_start = self.clock
         req.transfer_start_wall = time.monotonic()
         if src is dst:
@@ -259,7 +262,7 @@ class PDCluster:
         hidden = 0.0
         windows = 1
         retries_before = req.transfer_retries
-        if self.layer_window > 0 and job.plan is not None and \
+        if self.layer_window > 0 and job.plan is not None and not job.state_bytes and \
                 job.plan.num_layers > self.layer_window:
             outcome, latency, hidden = self._transfer_windowed(
                 req, src, dst, job, profile)
@@ -295,7 +298,8 @@ class PDCluster:
                 end_wall_s=req.transfer_end_wall, node_id=src.node_id,
                 attrs={"schedule": job.schedule, "calls": job.num_calls,
                        "dispatches": job.num_dispatches,
-                       "bytes": job.num_bytes, "est_latency_s": latency,
+                       "bytes": job.num_bytes, "page_bytes": job.num_bytes - job.state_bytes,
+                       "state_bytes": job.state_bytes, "est_latency_s": latency,
                        "hidden_s": hidden, "windows": windows,
                        "dst_node": dst.node_id,
                        "src_tp": src.tp_degree, "dst_tp": dst.tp_degree,
@@ -305,6 +309,7 @@ class PDCluster:
         # the index entry is re-homed to where the KV actually is.
         self._rehome_prefix(req, dst.node_id, list(job.dst_blocks))
         src.scheduler.sending_done(req)
+        src.drop_state(req.request_id)
         dst.scheduler.enqueue_decode(req)
 
     # -- transfer hardening (retry / integrity / degradation) -------------------------
@@ -403,6 +408,7 @@ class PDCluster:
         if reason == "dst_dead":
             if dst.scheduler.bm.owns(req.request_id):
                 dst.scheduler.bm.free(req.request_id)
+            dst.drop_state(req.request_id)
             return
         self._degrade_to_recompute(req, src, dst)
 
@@ -418,10 +424,11 @@ class PDCluster:
         """
         if dst.scheduler.bm.owns(req.request_id):
             dst.scheduler.bm.free(req.request_id)
+        dst.drop_state(req.request_id)
         src.scheduler.sending_done(req, free=True)
         # the state path's source still holds the state that never moved:
         # drop it too (the reference keeps it for good; ROADMAP queue 3)
-        src.states.pop(req.request_id, None)
+        src.drop_state(req.request_id)
         self.degraded_to_recompute += 1
         target = dst if (dst.node_id not in self._dead and
                          self.controller.nodes[dst.node_id].alive) else src
@@ -756,7 +763,10 @@ class PDCluster:
             tm.clear()
         engine.scheduler.bm.release_all()
         engine.spilled.clear()
+        engine.spilled_state.clear()
         engine.states.clear()
+        if engine.slots is not None:
+            engine.slots.release_all()
 
     def checkpoint(self) -> dict:
         from repro_torch.serving.checkpoint import cluster_state

@@ -6,8 +6,9 @@ width) bucket: the port's counterpart of the reference's jit cache
 block-table width. An engine whose step can be captured (a CUDA device,
 ``tp_degree == 1``, the paged kernel path, and a forward with static shapes:
 ``Model.decode_paged_static``) keeps a :class:`DecodeGraphs`, which holds for
-each bucket the step's three inputs (tokens, block tables, lengths) in
-device buffers fed from pinned host buffers, and:
+each bucket the step's inputs (tokens, block tables, lengths, and the
+state slots' ids of a family that has them) in device buffers fed from
+pinned host buffers, and:
 
 * at the bucket's first sight, runs the step eagerly on those buffers (the
   real step, and the warm-up a capture needs), then captures
@@ -44,7 +45,7 @@ from repro_torch.kernels import ticket_counters
 class _Bucket:
     """One (lanes, width) bucket: its inputs, and its graph once captured."""
     host: Tuple[np.ndarray, ...]           # numpy views of the pinned buffers
-    pinned: Tuple[torch.Tensor, ...]       # tokens (lanes,), tables (lanes, width), lengths
+    pinned: Tuple[torch.Tensor, ...]       # tokens (lanes,), tables (lanes, width), lengths, ...
     dev: Tuple[torch.Tensor, ...]          # the same on the device: the graph's inputs
     graph: Optional[torch.cuda.CUDAGraph] = None
     logits: Optional[torch.Tensor] = None  # the graph's output (lanes, vocab) fp32
@@ -64,20 +65,21 @@ class DecodeGraphs:
         self.captures = 0       # graphs captured, one a bucket
         self.replays = 0        # steps served by a replay
 
-    def stage(self, tokens: np.ndarray, tables: np.ndarray, lengths: np.ndarray) -> _Bucket:
-        """Write one step's padded inputs into the pinned host buffers of
-        their bucket (``tables.shape``). The previous step's read-back
+    def stage(self, *arrays: np.ndarray) -> _Bucket:
+        """Write one step's padded inputs (tokens, tables, lengths, then any
+        further per-lane input) into the pinned host buffers of their
+        bucket (the tables' shape). The previous step's read-back
         synchronised the stream, so no copy from these buffers is pending."""
-        key = tables.shape
+        key = arrays[1].shape
         b = self._buckets.get(key)
         if b is None:
             pinned = tuple(torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
-                           for a in (tokens, tables, lengths))
+                           for a in arrays)
             b = self._buckets[key] = _Bucket(
                 host=tuple(t.numpy() for t in pinned), pinned=pinned,
                 dev=tuple(torch.empty(t.shape, dtype=t.dtype, device=self.device)
                           for t in pinned))
-        for buf, arr in zip(b.host, (tokens, tables, lengths)):
+        for buf, arr in zip(b.host, arrays):
             buf[...] = arr
         return b
 
@@ -98,13 +100,13 @@ class DecodeGraphs:
             b.graph.replay()
             self.replays += 1
             return b.logits, "replay"
-        tokens, tables, lengths = b.dev
-        logits, _ = decode(params, tokens, pool, tables, lengths)
+        tokens, *rest = b.dev
+        logits, _ = decode(params, tokens, pool, *rest)
         self._capture(b, decode, params, pool)
         return logits, "capture"
 
     def _capture(self, b: _Bucket, decode: Callable, params, pool: torch.Tensor) -> None:
-        tokens, tables, lengths = b.dev
+        tokens, *rest = b.dev
         b.tickets = ticket_counters(pool.device, self._stream,
                                     tokens.shape[0] * self.tickets_per_lane)
         graph = torch.cuda.CUDAGraph()
@@ -112,7 +114,7 @@ class DecodeGraphs:
         with torch.cuda.stream(self._stream):
             graph.capture_begin(pool=self._mempool)
             try:
-                logits, _ = decode(params, tokens, pool, tables, lengths)
+                logits, _ = decode(params, tokens, pool, *rest)
             finally:
                 graph.capture_end()
         b.graph, b.logits, b.captured = graph, logits, (decode, params, pool)

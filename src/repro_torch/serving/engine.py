@@ -13,6 +13,16 @@ as the path for windowed attention.
   ``states`` and shipped whole (``core/transfer.StateBackend``); decode runs
   one ``Model.decode`` call per request. No chunked prefill, no spill and
   no prefix reuse: those need pages.
+* paged plus state slots (granitemoehybrid): the attention layers' K/V in
+  the paged pool as above, each request's Mamba-2 state in a slot of
+  ``serving/state_slots.StateSlots`` from its first chunk to its finish
+  (a request that finds no slot free waits, as it would for blocks).
+  Chunks carry the slot's state (``Model.prefill_chunk``); decode is the
+  same one batched step over pages and slots, graphs included, its pad
+  lanes on a scratch block and a scratch slot; a spill saves the slot's
+  row with the pages; P->D moves the pages and the row
+  (``core/transfer.PagedStateBackend``). No prefix reuse: pages alone
+  cannot restore a Mamba-2 state.
 
 "One dispatch per decode cycle" keeps the reference's meaning: one
 host-issued step call (``decode_dispatches`` counts those), which makes many
@@ -59,8 +69,10 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.serving.decode_graphs import DecodeGraphs
 from repro_torch.serving.kv_cache import PagedKVCache, ShardedKVCache, spec_for_model
 from repro_torch.serving.request import Request
+from repro_torch.serving.state_slots import StateSlots
 
 PAGED_FAMILIES = ("dense", "moe", "vlm", "audio")
+SLOT_FAMILIES = ("granitemoehybrid",)
 
 
 def _next_pow2(n: int) -> int:
@@ -92,7 +104,8 @@ class NodeEngine:
             raise ValueError(
                 "the enc-dec family cannot be served: its prefill needs encoder "
                 "frames, which requests do not carry (ROADMAP.md queue 3)")
-        self.paged = cfg.family in PAGED_FAMILIES
+        self.paged = cfg.family in PAGED_FAMILIES + SLOT_FAMILIES
+        self.slots: Optional[StateSlots] = None
         # -- mesh parallelism ---------------------------------------------------------
         # tp_degree > 1: the model runs sharded over a model axis, the pool
         # split into per-kv-head-slice shard pools (distributed/tp.py).
@@ -101,15 +114,22 @@ class NodeEngine:
         self.shard_params: Optional[List] = None
         self.merged_combine = None
         if tp_degree > 1:
-            if not self.paged:
-                raise ValueError("tp_degree > 1 requires a paged-KV family, "
-                                 f"got {cfg.family!r}")
+            if not self.paged or cfg.family in SLOT_FAMILIES:
+                raise ValueError("tp_degree > 1 requires a paged-KV family without "
+                                 f"state slots, got {cfg.family!r}")
             tp_mod.validate_tp(cfg, tp_degree)
             self.shard_params = tp_mod.shard_params(params, cfg, tp_degree)
             # the combine weights concatenated once, not once a step
             self.merged_combine = tp_mod.merged_combine(self.shard_params, cfg)
             self.kv = ShardedKVCache(spec_for_model(cfg, num_blocks), tp_degree,
                                      allocator, device=self.device)
+        elif cfg.family in SLOT_FAMILIES:
+            # the pool holds one block past the block manager's: the pad
+            # lanes' scratch block, which no request's table holds
+            self.kv = PagedKVCache(spec_for_model(cfg, num_blocks + 1), allocator,
+                                   bm=BlockManager(num_blocks, cfg.block_size, allocator),
+                                   device=self.device)
+            self.slots = StateSlots(cfg, cfg.state_slots, self.device)
         elif self.paged:
             self.kv = PagedKVCache(spec_for_model(cfg, num_blocks), allocator,
                                    device=self.device)
@@ -121,7 +141,8 @@ class NodeEngine:
         self.states: Dict[int, Dict[str, torch.Tensor]] = {}   # request_id -> state
         # Chunked prefill needs the suffix data plane: an intermediate chunk
         # is exactly a suffix prefill (q_offset = tokens done) over the pool.
-        self.supports_chunked_prefill = self.paged and self.model.prefill_suffix is not None
+        self.supports_chunked_prefill = self.paged and (
+            self.model.prefill_suffix is not None or self.model.prefill_chunk is not None)
         self.scheduler = HybridScheduler(
             node_id, bm, max_batch_tokens=max_batch_tokens,
             chunked_prefill=chunked_prefill and self.supports_chunked_prefill,
@@ -131,10 +152,16 @@ class NodeEngine:
         # preempts a decode request; restored into fresh blocks on resume.
         # Paged engines only: the state path keeps its dict in ``states``.
         self.spilled: Dict[int, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+        self.spilled_state: Dict[int, torch.Tensor] = {}   # request_id -> slot row
         if self.paged:
             self.scheduler.on_spill = self._spill_kv
             self.scheduler.on_resume = self._restore_kv
-            self.scheduler.on_discard = lambda req: self.spilled.pop(req.request_id, None)
+            self.scheduler.on_discard = self._discard
+        if self.slots is not None:
+            self.scheduler.can_admit = self._take_slot
+            # the decode step as the graphs call it, the slots bound once
+            self._slot_step = lambda p, tok, pool, bt, lens, slot_ids: \
+                self.model.decode_paged(p, tok, pool, bt, lens, slot_ids, self.slots)
         # -- zero-gather decode plane ------------------------------------------------
         # paged_decode: "auto" (kernel when supported), "kernel", "dense" (oracle).
         if paged_decode not in ("auto", "kernel", "dense"):
@@ -180,6 +207,57 @@ class NodeEngine:
     def decode_graph_replays(self) -> int:
         """Paged steps served by replaying their bucket's graph."""
         return 0 if self.graphs is None else self.graphs.replays
+
+    @property
+    def state_slots_peak(self) -> int:
+        """Most state slots held at once (0 without slots)."""
+        return 0 if self.slots is None else self.slots.peak_held
+
+    @property
+    def state_spills(self) -> int:
+        """State slots saved to the host by decode preemptions."""
+        return 0 if self.slots is None else self.slots.spills
+
+    # -- state slots ----------------------------------------------------------------
+    def _take_slot(self, req: Request) -> bool:
+        """Scheduler hook: the request's slot, taken now if free."""
+        return self.slots.acquire(req.request_id) is not None
+
+    def can_accept_transfer(self, req: Request) -> bool:
+        """Whether a transfer of ``req`` may land here now: a free state
+        slot where the node holds slots."""
+        return self.slots is None or self.slots.owns(req.request_id) \
+            or self.slots.num_free > 0
+
+    def drop_state(self, request_id: int) -> None:
+        """Free whatever request state the node holds outside its blocks:
+        the state path's dict and the state slot."""
+        self.states.pop(request_id, None)
+        if self.slots is not None:
+            self.slots.release(request_id)
+
+    def _discard(self, req: Request) -> None:
+        """Scheduler hook: the request left the node for good."""
+        self.spilled.pop(req.request_id, None)
+        self.spilled_state.pop(req.request_id, None)
+        self.drop_state(req.request_id)
+
+    def _prefill_slot_chunk(self, req: Request, offset: int, tokens: torch.Tensor,
+                            k_pre, v_pre):
+        """One chunk from the slot's carried state (zeros for the first),
+        its new state written back into the slot."""
+        slots, rid = self.slots, req.request_id
+        if slots.acquire(rid) is None:
+            raise RuntimeError(f"request {rid} prefills without a state slot")
+        slot = slots.slot_of(rid)
+        conv = h = None
+        if offset > 0:
+            conv, h = slots.conv[slot][:, None], slots.h[slot][:, None]
+            k_pre, v_pre = k_pre[:, None], v_pre[:, None]
+        logits, cache, conv, h = self.model.prefill_chunk(self.params, tokens, k_pre, v_pre,
+                                                          conv, h)
+        slots.store(rid, conv[:, 0], h[:, 0])
+        return logits, cache
 
     def _tokens(self, ids) -> torch.Tensor:
         return torch.as_tensor([list(ids)], dtype=torch.int32).to(self.device)
@@ -227,7 +305,10 @@ class NodeEngine:
             tokens = self._tokens(req.prompt_tokens[offset:offset + chunk])
             if stamps is not None:
                 stamps["t_launch"] = self.tracer.wall()
-            if offset > 0 and self.tp_degree > 1:
+            if self.slots is not None:
+                logits, cache = self._prefill_slot_chunk(
+                    req, offset, tokens, *((k_pre, v_pre) if offset > 0 else (None, None)))
+            elif offset > 0 and self.tp_degree > 1:
                 logits, cache = tp_mod.sharded_prefill_suffix(
                     self.shard_params, self.cfg, tokens, k_pre[:, None],
                     v_pre[:, None], self.merged_combine)
@@ -292,8 +373,10 @@ class NodeEngine:
         belongs to no one request) whose attrs count its real lanes
         (``batch``), the lanes it ran (``lanes``) and the cached tokens its
         real lanes attend (``context_tokens``) and how it ran (``graph``:
-        ``"replay"``, ``"capture"`` or ``"eager"``); the paged-kernel step
-        adds its block-table width and the phase stamps ``t_upload``,
+        ``"replay"``, ``"capture"`` or ``"eager"``), and with state slots
+        the bytes of state its real lanes read and write (``state_bytes``);
+        the paged-kernel step adds its block-table width and the phase
+        stamps ``t_upload``,
         ``t_launch``, ``t_readback`` and ``t_post``, which with the span's
         start and end cut it into prep, upload, launch, readback and post.
         A graph's step uploads into pinned memory, and its launch is the
@@ -307,6 +390,8 @@ class NodeEngine:
             attrs = {"batch": len(batch), "lanes": len(batch),
                      "context_tokens": sum(r.total_len - 1 for r in batch),
                      "graph": "eager"}
+            if self.slots is not None:
+                attrs["state_bytes"] = 2 * len(batch) * self.slots.slot_bytes
         self._step_attrs = attrs        # read by _decode_paged_kernel, this call only
         try:
             decoded = self._decode_paged(batch) if self.paged else self._decode_state(batch)
@@ -318,7 +403,7 @@ class NodeEngine:
             eos = req.sampling.eos_token_id
             if req.num_output >= req.sampling.max_new_tokens or (eos is not None and last == eos):
                 finished.append(req)
-                self.states.pop(req.request_id, None)
+                self.drop_state(req.request_id)
                 self.scheduler.decode_finished(req)
         # bandwidth pressure = fraction of the admitted batch that decoded
         self.scheduler.last_bandwidth_util = decoded / max(1, len(batch))
@@ -339,7 +424,10 @@ class NodeEngine:
         Batch and block-table width are padded to power-of-two buckets; pad
         lanes replicate lane 0 (same token / length / block-table row), so
         their append descriptors duplicate lane 0's writes bit-identically
-        instead of aiming at block 0. A traced step's attrs take the bucket
+        instead of aiming at block 0. With state slots a pad lane instead
+        reads and writes the scratch slot and appends into the scratch
+        block at length 0: a real lane's slot and pages see only its own
+        lane. A traced step's attrs take the bucket
         and the phase stamps. An engine with ``graphs`` stages the inputs
         in its bucket's pinned buffers and replays (or first captures) the
         bucket's graph instead of calling ``decode_paged``.
@@ -360,6 +448,16 @@ class NodeEngine:
         tok_arr[:b] = toks
         len_arr = np.full((bp,), lens[0], np.int32)
         len_arr[:b] = lens
+        arrays = (tok_arr, bt, len_arr)
+        step = self.model.decode_paged
+        if self.slots is not None:
+            bt[b:] = 0
+            bt[b:, 0] = self.kv.spec.num_blocks - 1
+            len_arr[b:] = 0
+            slot_arr = np.full((bp,), self.slots.scratch, np.int32)
+            slot_arr[:b] = [self.slots.slot_of(r.request_id) for r in batch]
+            arrays += (slot_arr,)
+            step = self._slot_step
         self._decode_cache_keys.add((bp, wp))
         dev, graphs = self.device, self.graphs
         # decode_dispatches counts host-issued step calls: this branch makes
@@ -367,22 +465,21 @@ class NodeEngine:
         if attrs is not None:
             attrs.update(lanes=bp, width=wp, t_upload=self.tracer.wall())
         if graphs is not None:
-            bucket = graphs.stage(tok_arr, bt, len_arr)
+            bucket = graphs.stage(*arrays)
         else:
-            tok_t, bt_t, len_t = (torch.from_numpy(a).to(dev) for a in (tok_arr, bt, len_arr))
+            inputs = [torch.from_numpy(a).to(dev) for a in arrays]
         if attrs is not None:
             attrs["t_launch"] = self.tracer.wall()
         if graphs is not None:
-            logits, how = graphs.run(bucket, self.model.decode_paged, self.params,
-                                     self.kv.pool)
+            logits, how = graphs.run(bucket, step, self.params, self.kv.pool)
             if attrs is not None:
                 attrs["graph"] = how
         elif self.tp_degree > 1:
             logits, _ = tp_mod.sharded_decode_step_paged(
-                self.shard_params, self.cfg, tok_t, self.kv.pools, bt_t, len_t,
+                self.shard_params, self.cfg, inputs[0], self.kv.pools, *inputs[1:],
                 self.merged_combine)
         else:
-            logits, _ = self.model.decode_paged(self.params, tok_t, self.kv.pool, bt_t, len_t)
+            logits, _ = step(self.params, inputs[0], self.kv.pool, *inputs[1:])
         self.kv.num_pool_dispatches += 1
         self.decode_steps += 1
         self.decode_dispatches += 1
@@ -454,6 +551,8 @@ class NodeEngine:
         length = req.total_len - 1
         k, v = self.kv.gather_dense(req.request_id, length)
         self.spilled[req.request_id] = (k.cpu(), v.cpu(), length)
+        if self.slots is not None and self.slots.owns(req.request_id):
+            self.spilled_state[req.request_id] = self.slots.save(req.request_id)
 
     def _restore_kv(self, req: Request) -> None:
         """Refill fresh blocks with the saved KV when a swap resumes."""
@@ -463,6 +562,9 @@ class NodeEngine:
         k, v, length = entry
         self.kv.write_prefill(req.request_id, k.to(self.device), v.to(self.device),
                               length)
+        row = self.spilled_state.pop(req.request_id, None)
+        if row is not None:         # its slot was taken by the scheduler's gate
+            self.slots.load(req.request_id, row)
 
     # -- transfer hooks (TransferBackend ports; see core/transfer.py) -------------------
     def export_state(self, req: Request):
